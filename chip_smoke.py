@@ -1,0 +1,172 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, one line each (any failure exits non-zero):
+  1. device: the card's name, and its name and power limit from nvidia-smi;
+  2. build: compile csrc/softmax_glm.cu for sm_90a (seconds, ptxas report);
+  3. kernel against plain: both variants of the fused softmax-GLM kernel
+     against the plain PyTorch version on the same inputs, at a ragged small
+     shape and at the bench shape (N=60000, D=784, K=10, C=128, X on the
+     8-bit grid), with per-call times from CUDA events;
+  4. main path: the port bench (synthetic MNIST 60000 x 784, full metric
+     setup, 128 chains, L=10, target 0.5) cut to 50 warmup steps and 100
+     draws; its JSON line, checks on its outputs, and the kernel launch
+     counts of that run against the calls the path makes.
+Then one JSON line describing each kernel, and last:
+  {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
+Without a CUDA device it exits non-zero before printing any result.
+"""
+
+import json
+import math
+import subprocess
+import sys
+
+WARMUP, DRAWS, CHAINS, L = 50, 100, 128, 10
+SOURCE = "dropout_hamiltonian_montecarlo_tpu_torch/csrc/softmax_glm.cu"
+REPLACES = "dropout_hamiltonian_montecarlo_tpu/ops/pallas_glm.py:98"
+# tolerances: the value feeds the MH accept, whose energy delta is O(1), so
+# 0.1 nat per chain; gradients within rtol 1e-3 and atol 3.9e-3 max|g| (the
+# JAX kernel's fast-mode bound), and also within 1e-4 max|g| absolute, which
+# a single-pass bf16 backward (~1.6e-3 max|g|) would miss: f32 accuracy
+VALUE_ATOL = 0.1
+GRAD_RTOL, GRAD_ATOL_FRAC = 1e-3, 3.9e-3
+F32_ATOL_FRAC = 1e-4
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+def make_inputs(torch, n, d, k, c, seed, w_scale):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    X = torch.randint(0, 256, (n, d), generator=g, device="cuda").float() / 256.0
+    yi = torch.randint(0, k, (n,), generator=g, device="cuda")
+    Y = torch.nn.functional.one_hot(yi, k).float()
+    W = w_scale * torch.randn((c, d, k), generator=g, device="cuda")
+    b = 0.1 * torch.randn((c, k), generator=g, device="cuda")
+    return X, Y, W, b
+
+
+def compare(torch, sg, X, Y, W, b, alpha):
+    """Kernel (both variants) against plain; returns the max abs errors and,
+    for the gradients, the max abs errors over max|g|."""
+    ref_v, ref_gw, ref_gb = sg.softmax_value_and_grad_plain(X, Y, W, b)
+    ref_v = ref_v + sg.log_prior_batched(W, b, alpha)
+    ref_gw, ref_gb = ref_gw - alpha * W, ref_gb - alpha * b
+    v, gw, gb = sg.softmax_value_and_grad(X, Y, W, b, alpha, fwd_full=True)
+    v2, gw2, gb2 = sg.softmax_value_and_grad(X, Y, W, b, alpha, fwd_full=False)
+    torch.cuda.synchronize()
+    if v2 is not None:
+        fail("grad-only variant returned a value")
+    errs = {"value": float((v - ref_v).abs().max())}
+    for name, got, ref in (("gw", gw, ref_gw), ("gb", gb, ref_gb),
+                           ("gw_gradonly", gw2, ref_gw), ("gb_gradonly", gb2, ref_gb)):
+        if not bool(torch.isfinite(got).all()):
+            fail(f"{name} not finite")
+        errs[name] = float((got - ref).abs().max())
+        gmax = float(ref.abs().max())
+        errs[name + "_over_max_g"] = errs[name] / gmax
+        atol = GRAD_ATOL_FRAC * gmax
+        bad = (got - ref).abs() > atol + GRAD_RTOL * ref.abs()
+        if bool(bad.any()):
+            fail(f"{name}: {int(bad.sum())} elements beyond rtol {GRAD_RTOL} "
+                 f"atol {atol:.3g} (max abs err {errs[name]:.3g})")
+        if errs[name] > F32_ATOL_FRAC * gmax:
+            fail(f"{name}: max abs err {errs[name]:.3g} > {F32_ATOL_FRAC} max|g| "
+                 f"({gmax:.4g}): not f32-accurate")
+    if errs["value"] > VALUE_ATOL:
+        fail(f"value error {errs['value']:.4g} > {VALUE_ATOL} nat")
+    return errs
+
+
+def main() -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device")
+    from dropout_hamiltonian_montecarlo_tpu_torch import bench, full_f32_precision
+    from dropout_hamiltonian_montecarlo_tpu_torch.ops import softmax_glm as sg
+    from dropout_hamiltonian_montecarlo_tpu_torch.ops.cuda_build import BUILD_INFO
+    from dropout_hamiltonian_montecarlo_tpu_torch.utils.profiling import cuda_time_ms
+
+    full_f32_precision()
+
+    # ---- 1. device ------------------------------------------------------
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(f"phase 1 device: {kind}; torch {torch.__version__} cuda {torch.version.cuda}",
+          flush=True)
+    print(smi.splitlines()[0], flush=True)
+
+    # ---- 2. build -------------------------------------------------------
+    build_s = sg.build_kernel()
+    ptxas = [ln.strip() for ln in BUILD_INFO["softmax_glm"]["ptxas"].splitlines()
+             if "registers" in ln or "spill" in ln]
+    print(f"phase 2 build: {build_s:.1f}s; ptxas: {' | '.join(ptxas)}", flush=True)
+
+    # ---- 3. kernel against plain ---------------------------------------
+    alpha = 1.0
+    small = compare(torch, sg, *make_inputs(torch, 1000, 64, 10, 3, 0, 0.3), alpha)
+    Xb, Yb, Wb, bb = make_inputs(torch, 60000, 784, 10, CHAINS, 1, 0.05)
+    big = compare(torch, sg, Xb, Yb, Wb, bb, alpha)
+    ms_full = cuda_time_ms(lambda: sg.softmax_value_and_grad(Xb, Yb, Wb, bb, alpha), 10, 3)
+    ms_grad = cuda_time_ms(
+        lambda: sg.softmax_value_and_grad(Xb, Yb, Wb, bb, alpha, fwd_full=False), 10, 3)
+    ms_plain = cuda_time_ms(lambda: sg.softmax_value_and_grad_plain(Xb, Yb, Wb, bb), 10, 3)
+    flop = 2 * 2 * 60000 * 784 * 10 * CHAINS
+    print("phase 3 kernel vs plain: small(N=1000,D=64,C=3) errors "
+          f"{json.dumps(small)}; bench(N=60000,D=784,C=128) errors {json.dumps(big)}; "
+          f"ms/call value+grad {ms_full:.3f} grad-only {ms_grad:.3f} plain {ms_plain:.3f}; "
+          f"TFLOP/s value+grad {flop / ms_full / 1e9:.2f} plain {flop / ms_plain / 1e9:.2f}",
+          flush=True)
+    del Xb, Yb, Wb, bb
+    torch.cuda.empty_cache()
+
+    # ---- 4. main path ---------------------------------------------------
+    sg.reset_launch_counts()
+    result = bench.run(device="cuda", chains=CHAINS, warmup=WARMUP, draws=DRAWS,
+                       num_integration_steps=L, target_accept=0.5, dataset="mnist")
+    torch.cuda.synchronize()
+    counts = dict(sg.launch_counts)
+    print("phase 4 main path: " + json.dumps(result), flush=True)
+    det = result["detail"]
+    for key in ("ess_median", "ess_min", "acceptance", "sample_seconds"):
+        if not math.isfinite(det[key]):
+            fail(f"{key} is not finite: {det[key]}")
+    if not math.isfinite(result["value"]):
+        fail(f"ESS/s is not finite: {result['value']}")
+    if not 0.2 < det["acceptance"] < 0.95:
+        fail(f"acceptance {det['acceptance']} outside (0.2, 0.95)")
+    if det["map_train_accuracy"] < 0.85:
+        fail(f"MAP train accuracy {det['map_train_accuracy']} < 0.85")
+    if det["divergent_frac"] > 0.01:
+        fail(f"divergent fraction {det['divergent_frac']}")
+    want = {"grad": (WARMUP + DRAWS) * (L - 1), "value_and_grad": WARMUP + DRAWS + 2}
+    if counts != want:
+        fail(f"kernel launches {counts} != the path's calls {want}")
+    print(f"phase 4 launch counts: {counts} (expected {want})", flush=True)
+
+    kernels = [
+        {"name": "softmax_glm_value_and_grad", "route": "cuda", "source": SOURCE,
+         "replaces": REPLACES, "launches": counts["value_and_grad"],
+         "max_abs_err": max(big["value"], big["gw"], big["gb"]),
+         "ms": ms_full, "plain_ms": ms_plain},
+        {"name": "softmax_glm_grad", "route": "cuda", "source": SOURCE,
+         "replaces": REPLACES, "launches": counts["grad"],
+         "max_abs_err": max(big["gw_gradonly"], big["gb_gradonly"]),
+         "ms": ms_grad, "plain_ms": ms_plain},
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}),
+          flush=True)
+
+
+if __name__ == "__main__":
+    main()
+    sys.exit(0)

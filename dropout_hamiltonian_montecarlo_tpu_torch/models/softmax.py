@@ -1,0 +1,74 @@
+"""Bayesian softmax (multinomial logistic) regression.
+
+Params: {'weights': (D, K), 'bias': (K,)}; batch: (X (B, D), y (B, K) one-hot).
+The chain-batched value+grad (``make_fused_value_and_grad``) takes
+{'weights': (C, D, K), 'bias': (C, K)} and goes through ops.softmax_glm.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .base import Model, Params
+
+
+class Softmax(Model):
+    def __init__(self, dim: int, n_classes: int, alpha: float = 1e-2):
+        self.dim = dim
+        self.n_classes = n_classes
+        self.alpha = float(alpha)
+
+    def log_prior(self, params: Params) -> torch.Tensor:
+        """Gaussian prior over ONE chain's parameters (the chain-batched
+        prior is ops.softmax_glm.log_prior_batched)."""
+        k = sum(p.numel() for p in params.values())
+        sq = sum((p * p).sum() for p in params.values())
+        return 0.5 * k * math.log(self.alpha / (2.0 * math.pi)) - 0.5 * self.alpha * sq
+
+    def logits(self, params: Params, X: torch.Tensor) -> torch.Tensor:
+        return X @ params["weights"] + params["bias"]
+
+    def log_likelihood(self, params: Params, batch) -> torch.Tensor:
+        X, y = batch
+        return (y * torch.log_softmax(self.logits(params, X), dim=-1)).sum()
+
+    def init_params(self, generator: torch.Generator, device) -> Params:
+        w = torch.randn((self.dim, self.n_classes), generator=generator,
+                        dtype=torch.float32, device=device)
+        return {"weights": 1e-2 * w,
+                "bias": torch.zeros((self.n_classes,), dtype=torch.float32,
+                                    device=device)}
+
+    def predict(self, params: Params, X: torch.Tensor, prob: bool = False):
+        p = torch.softmax(self.logits(params, X), dim=-1)
+        return p if prob else torch.argmax(p, dim=-1)
+
+    def analytic_grad(self, params: Params, batch) -> Params:
+        """Closed-form gradient of the log posterior (one chain)."""
+        X, y = batch
+        resid = y - torch.softmax(self.logits(params, X), dim=-1)
+        return {"weights": X.T @ resid - self.alpha * params["weights"],
+                "bias": resid.sum(dim=0) - self.alpha * params["bias"]}
+
+    def make_fused_value_and_grad(self, batch, fwd_full: bool = True,
+                                  include_prior: bool = True):
+        """Chain-batched log-posterior value+grad through the fused
+        softmax-GLM op (the CUDA kernel for CUDA tensors).
+
+        ``fwd_full=True``: params -> ((C,) values, grads).  ``fwd_full=False``
+        is the grad-only variant, params -> grads, for the inner leapfrog
+        steps.  ``include_prior=False`` gives likelihood-only outputs."""
+        from ..ops.softmax_glm import softmax_value_and_grad
+
+        X, y = batch
+
+        def vag(params: Params):
+            value, gw, gb = softmax_value_and_grad(
+                X, y, params["weights"], params["bias"], self.alpha,
+                fwd_full=fwd_full, include_prior=include_prior)
+            grads = {"weights": gw, "bias": gb}
+            return (value, grads) if fwd_full else grads
+
+        return vag

@@ -1,0 +1,303 @@
+"""Exact Kronecker-factored Gauss-Newton metric for the softmax posterior.
+
+With the bias treated as the weight of a constant feature, the Gauss-Newton
+Hessian plus the isotropic prior is
+
+    M = (U_g (x) U_a) diag(s_g (x) s_a + alpha) (U_g (x) U_a)^T
+
+where G = [X, 1]^T [X, 1] = U_g diag(s_g) U_g^T (augmented Gram, (D+1)^2)
+and A = U_a diag(s_a) U_a^T is the class Fisher (K x K).  HMC runs in the
+whitened coordinates e = M^{1/2} (q - q_map), where the posterior is close to
+N(0, I).  The eigendecompositions run in float64 on the host; the Gram GEMM
+and every map below run on the tensors' device in float32.
+
+Setups are stored as npz files with the JAX package's keys (s_g, U_g, s_a,
+U_a, qw, qb), so one setup can be loaded by both packages.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import math
+import os
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .tree import Params, tree_add
+
+
+def gram_eigh_augmented(X: torch.Tensor):
+    """Eigendecomposition of [X, 1]^T [X, 1] = [[X^T X, n xbar], [n xbar^T, n]].
+    The Gram GEMM runs on X's device in f32; only the (D+1)^2 result goes to
+    the host.  Returns host float64 (s_g (D+1,), U_g (D+1, D+1))."""
+    n = X.shape[0]
+    F = (X.T @ X).double().cpu().numpy()
+    xbar_n = X.sum(dim=0).double().cpu().numpy()
+    G = np.block([[F, xbar_n[:, None]], [xbar_n[None, :], np.array([[float(n)]])]])
+    s_g, U_g = np.linalg.eigh(G)
+    return np.maximum(s_g, 0.0), U_g
+
+
+def class_fisher_eigh(n_classes: int, probs: Optional[torch.Tensor] = None):
+    """Eigendecomposition of the class Fisher: the uniform categorical's
+    I/K - 11^T/K^2, or the mean empirical Fisher of ``probs`` (n, K)."""
+    k = n_classes
+    if probs is None:
+        A = np.eye(k) / k - np.ones((k, k)) / (k * k)
+    else:
+        A_dev = torch.diag(probs.mean(dim=0)) - (probs.T @ probs) / probs.shape[0]
+        A = A_dev.double().cpu().numpy()
+    s_a, U_a = np.linalg.eigh(A)
+    return np.maximum(s_a, 0.0), U_a
+
+
+class KronMetric:
+    """The augmented Kronecker Gauss-Newton metric over {'weights': (..., D, K),
+    'bias': (..., K)} dicts; every map accepts any leading batch (chain) axes."""
+
+    def __init__(self, gram, fisher, alpha: float, device):
+        s_g, U_g = gram
+        s_a, U_a = fisher
+        f32 = dict(dtype=torch.float32, device=device)
+        self.U_g = torch.as_tensor(np.asarray(U_g), **f32)          # (D+1, D+1)
+        self.U_a = torch.as_tensor(np.asarray(U_a), **f32)          # (K, K)
+        d_aug = np.outer(s_g, s_a) + alpha                         # float64
+        self.d_aug = torch.as_tensor(d_aug, **f32)                 # (D+1, K)
+        self.sqrt_d = torch.sqrt(self.d_aug)
+        self.alpha = float(alpha)
+        self.aux = {"s_f": np.asarray(s_g)[:-1], "s_g": np.asarray(s_g),
+                    "s_a": np.asarray(s_a),
+                    "d_w": self.d_aug[:-1].cpu().numpy(),
+                    "d_b": self.d_aug[-1].cpu().numpy(),
+                    "alpha": float(alpha), "augmented": True}
+
+    @staticmethod
+    def pack(p: Params) -> torch.Tensor:
+        return torch.cat([p["weights"], p["bias"].unsqueeze(-2)], dim=-2)
+
+    @staticmethod
+    def unpack(wa: torch.Tensor) -> Params:
+        return {"weights": wa[..., :-1, :], "bias": wa[..., -1, :]}
+
+    def to_eigen(self, p: Params) -> torch.Tensor:
+        return self.U_g.T @ self.pack(p) @ self.U_a
+
+    def from_eigen(self, e: torch.Tensor) -> Params:
+        return self.unpack(self.U_g @ e @ self.U_a.T)
+
+    def kinetic_energy(self, momentum: Params) -> torch.Tensor:
+        e = self.to_eigen(momentum)
+        return 0.5 * (e * e / self.d_aug).sum(dim=(-2, -1))
+
+    def kinetic_grad(self, momentum: Params) -> Params:
+        return self.from_eigen(self.to_eigen(momentum) / self.d_aug)
+
+    def sample_position(self, mean: Params, eps: torch.Tensor) -> Params:
+        """q ~ N(mean, M^-1) given standard-normal ``eps`` of shape (..., D+1, K)."""
+        return tree_add(mean, self.from_eigen(eps / self.sqrt_d))
+
+    def whiten(self, dq: Params) -> Params:
+        """e = M^{1/2} dq."""
+        return self.unpack(self.sqrt_d * self.to_eigen(dq))
+
+    def unwhiten(self, e: Params) -> Params:
+        """dq = M^{-1/2} e."""
+        return self.from_eigen(self.pack(e) / self.sqrt_d)
+
+    def unwhiten_transpose(self, g: Params) -> Params:
+        """The transpose of the linear map ``unwhiten``: carries a gradient
+        in parameter space to whitened space,
+        g_e = unpack((U_g^T pack(g) U_a) / sqrt_d)."""
+        return self.unpack(self.to_eigen(g) / self.sqrt_d)
+
+
+def natural_gradient_map(grad_fn, metric: KronMetric, init_params: Params,
+                         num_steps: int = 50, learning_rate: float = 1.0) -> Params:
+    """MAP by natural-gradient ascent q += lr * M^-1 grad: Newton's method
+    for the GLM when M is the Gauss-Newton Hessian."""
+    q = init_params
+    for _ in range(num_steps):
+        nat = metric.kinetic_grad(grad_fn(q))
+        q = {k: q[k] + learning_rate * nat[k] for k in q}
+    return q
+
+
+def _setup_path(cache_dir, X, y_onehot, alpha, newton_steps, provenance, seed):
+    k = y_onehot.shape[1]
+    cls = torch.arange(k, dtype=torch.float64, device=y_onehot.device)
+    fp = (provenance, tuple(int(s) for s in X.shape),
+          tuple(int(s) for s in y_onehot.shape),
+          float(X.sum(dtype=torch.float64)),
+          float((X.double() ** 2).sum()),
+          float((y_onehot.double() * cls).sum()),
+          float(alpha), int(newton_steps), int(seed))
+    h = hashlib.sha256(repr(fp).encode()).hexdigest()[:16]
+    return os.path.join(cache_dir, f"kron_setup_torch_{h}.npz")
+
+
+def save_gn_setup(path: str, gram, fisher, qmap: Params) -> None:
+    """Write a setup npz atomically (temporary file, then os.replace)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, s_g=gram[0], U_g=gram[1], s_a=fisher[0], U_a=fisher[1],
+                 qw=qmap["weights"].cpu().numpy(), qb=qmap["bias"].cpu().numpy())
+    os.replace(tmp, path)
+
+
+def cached_gn_setup(X: torch.Tensor, y_onehot: torch.Tensor, model, alpha: float,
+                    newton_steps: int = 60, cache_dir: Optional[str] = None,
+                    provenance: str = "", n_classes: int = 10, seed: int = 0):
+    """Metric setup for the softmax posterior: augmented Gram eigh ->
+    uniform-Fisher Newton MAP -> class Fisher at the MAP -> final metric.
+
+    Cached as an npz under ``cache_dir`` (None: no cache), keyed by a hash of
+    the dataset's shape and moments and the settings.  Returns
+    (metric, aux, qmap, from_cache); ``aux['timings']`` holds the seconds of
+    each stage (on a CUDA device each stage ends in a synchronize).
+    """
+    device = X.device
+    timings = {}
+
+    def mark(name, t0):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        timings[name] = time.perf_counter() - t0
+
+    path = None
+    if cache_dir:
+        path = _setup_path(cache_dir, X, y_onehot, alpha, newton_steps,
+                           provenance, seed)
+    if path is not None and os.path.exists(path):
+        t0 = time.perf_counter()
+        metric, _, qmap = load_gn_setup(path, alpha, device)
+        mark("load", t0)
+        aux = dict(metric.aux, timings=timings)
+        return metric, aux, qmap, True
+
+    t0 = time.perf_counter()
+    gram = gram_eigh_augmented(X)
+    mark("gram_eigh", t0)
+
+    t0 = time.perf_counter()
+    metric0 = KronMetric(gram, class_fisher_eigh(n_classes), alpha, device)
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    q0 = model.init_params(gen, device)
+    qmap = natural_gradient_map(lambda q: model.analytic_grad(q, (X, y_onehot)),
+                                metric0, q0, num_steps=newton_steps)
+    mark("newton_map", t0)
+
+    t0 = time.perf_counter()
+    fisher = class_fisher_eigh(n_classes, model.predict(qmap, X, prob=True))
+    metric = KronMetric(gram, fisher, alpha, device)
+    mark("class_fisher", t0)
+
+    if path is not None:
+        save_gn_setup(path, gram, fisher, qmap)
+    aux = dict(metric.aux, timings=timings)
+    return metric, aux, qmap, False
+
+
+def load_gn_setup(npz_path: str, alpha: float, device):
+    """(metric, aux, qmap) from a setup npz written by either package
+    (keys s_g, U_g, s_a, U_a, qw, qb)."""
+    with np.load(npz_path) as z:
+        gram = (z["s_g"], z["U_g"])
+        fisher = (z["s_a"], z["U_a"])
+        qmap = {"weights": torch.as_tensor(z["qw"], dtype=torch.float32, device=device),
+                "bias": torch.as_tensor(z["qb"], dtype=torch.float32, device=device)}
+    metric = KronMetric(gram, fisher, alpha, device)
+    return metric, metric.aux, qmap
+
+
+def make_whitened_gauge_gibbs(metric: KronMetric, aux, qmap: Params):
+    """Exact Gibbs move on the softmax gauge subspace, in whitened coordinates.
+
+    The likelihood is invariant under uniform logit shifts, so the whitened
+    coordinates on the class-Fisher null column j0 = argmin s_a are pure
+    prior, Gaussian and independent of the rest:
+        e_(i, j0) ~ N(-whiten(qmap)_(i, j0), d_w(i, j0) / alpha).
+    Resampling them after every draw is exact; the state's log density and
+    gradient are updated in closed form (no pass over the data).
+
+    Returns ``gibbs(state, *, eps_w=None, eps_b=None, generator=None)`` for a
+    chain-batched whitened HMCState; eps_w (C, D) and eps_b (C,) are the
+    standard-normal draws, injected or taken from ``generator``.
+    """
+    s_a = np.asarray(aux["s_a"])
+    j0 = int(np.argmin(s_a))
+    alpha = float(aux["alpha"])
+    device = metric.d_aug.device
+    d_col = torch.as_tensor(np.asarray(aux["d_w"])[:, j0], dtype=torch.float32,
+                            device=device)
+    sig_w = torch.sqrt(d_col / alpha)                             # (D,)
+    d_b0 = float(np.asarray(aux["d_b"])[j0])
+    sig_b = float(np.float32(math.sqrt(d_b0 / alpha)))
+
+    wq = metric.whiten(qmap)
+    m_w = -wq["weights"][:, j0]                                   # (D,)
+    m_b = -wq["bias"][j0]                                         # ()
+
+    def gibbs(state, *, eps_w: Optional[torch.Tensor] = None,
+              eps_b: Optional[torch.Tensor] = None,
+              generator: Optional[torch.Generator] = None):
+        e = state.position
+        g = state.logdensity_grad
+        c = e["bias"].shape[0]
+        if eps_w is None or eps_b is None:
+            if generator is None:
+                raise ValueError("pass eps_w=/eps_b= or an explicit generator=")
+            eps_w = torch.randn((c, m_w.shape[0]), generator=generator,
+                                dtype=torch.float32, device=device)
+            eps_b = torch.randn((c,), generator=generator, dtype=torch.float32,
+                                device=device)
+        old_w = e["weights"][:, :, j0]                            # (C, D)
+        old_b = e["bias"][:, j0]                                  # (C,)
+        zold_w = (old_w - m_w[None]) / sig_w[None]
+        zold_b = (old_b - m_b) / sig_b
+        new_w = m_w[None] + sig_w[None] * eps_w
+        new_b = m_b + sig_b * eps_b
+        # log N(e; m, sig^2) difference, dropping the shared normaliser
+        delta = -0.5 * ((eps_w ** 2 - zold_w ** 2).sum(dim=-1)
+                        + eps_b ** 2 - zold_b ** 2)
+        pos_w = e["weights"].clone()
+        pos_w[:, :, j0] = new_w
+        pos_b = e["bias"].clone()
+        pos_b[:, j0] = new_b
+        # d logp / d e = -(e - m) / sig^2 on the gauge coordinates
+        grad_w = g["weights"].clone()
+        grad_w[:, :, j0] = -eps_w / sig_w[None]
+        grad_b = g["bias"].clone()
+        grad_b[:, j0] = -eps_b / sig_b
+        return state._replace(position={"weights": pos_w, "bias": pos_b},
+                              logdensity=state.logdensity + delta,
+                              logdensity_grad={"weights": grad_w, "bias": grad_b})
+
+    return gibbs
+
+
+def make_whitened_fused_vag(model, metric: KronMetric, qmap: Params, batch):
+    """Chain-batched value+grad of the whitened log posterior
+    e -> logpost(qmap + unwhiten(e)), through the fused softmax-GLM op.
+
+    Returns (batched_vag, batched_grad): ``batched_vag`` gives ((C,) values,
+    whitened grads) with the accurate value; ``batched_grad`` is the
+    grad-only variant for the inner leapfrog steps (no value)."""
+    fused_q = model.make_fused_value_and_grad(batch)
+    fused_g = model.make_fused_value_and_grad(batch, fwd_full=False)
+
+    def to_params(E: Params) -> Params:
+        dQ = metric.unwhiten(E)
+        return {k: qmap[k][None] + dQ[k] for k in qmap}
+
+    def batched_vag(E: Params):
+        value, G = fused_q(to_params(E))
+        return value, metric.unwhiten_transpose(G)
+
+    def batched_grad(E: Params) -> Params:
+        return metric.unwhiten_transpose(fused_g(to_params(E)))
+
+    return batched_vag, batched_grad

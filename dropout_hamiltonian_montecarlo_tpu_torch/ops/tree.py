@@ -1,0 +1,61 @@
+"""Arithmetic over parameter dicts of tensors.
+
+Parameters are flat dicts of tensors ({'weights': ..., 'bias': ...}); in the
+chain-batched forms every leaf carries a leading chain axis C.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+Params = Dict[str, torch.Tensor]
+
+
+def tree_add(a: Params, b: Params) -> Params:
+    """a + b, leafwise."""
+    return {k: a[k] + b[k] for k in a}
+
+
+def tree_mul(a: Params, b: Params) -> Params:
+    """a * b, leafwise (Hadamard)."""
+    return {k: a[k] * b[k] for k in a}
+
+
+def tree_ones_like(a: Params) -> Params:
+    return {k: torch.ones_like(v) for k, v in a.items()}
+
+
+def tree_randn_like(a: Params, generator: Optional[torch.Generator]) -> Params:
+    """Standard-normal dict with the shapes of ``a``, drawn from ``generator``."""
+    if generator is None:
+        raise ValueError("a random draw needs an explicit torch.Generator")
+    return {k: torch.randn(v.shape, generator=generator, dtype=v.dtype,
+                           device=v.device) for k, v in a.items()}
+
+
+def _bcast(v: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
+    """Reshape a (C,)-vector so it broadcasts against a (C, ...) leaf."""
+    return v.reshape(v.shape + (1,) * (leaf.dim() - v.dim()))
+
+
+def tree_axpy_bcast(s: torch.Tensor, x: Params, y: Params) -> Params:
+    """y + s * x with a per-chain (C,) vector s over (C, ...) leaves."""
+    return {k: y[k] + _bcast(s, x[k]) * x[k] for k in x}
+
+
+def tree_where_bcast(pred: torch.Tensor, a, b):
+    """Per-chain select over (C, ...) leaves; ``a``/``b`` may be dicts or tensors."""
+    if isinstance(a, dict):
+        return {k: torch.where(_bcast(pred, a[k]), a[k], b[k]) for k in a}
+    return torch.where(_bcast(pred, a), a, b)
+
+
+def tree_batched_dot(a: Params, b: Params) -> torch.Tensor:
+    """Per-chain inner product over (C, ...) leaves -> (C,) vector."""
+    total = None
+    for k in a:
+        d = (a[k] * b[k]).reshape(a[k].shape[0], -1).sum(dim=1)
+        total = d if total is None else total + d
+    return total

@@ -1,0 +1,35 @@
+"""The port's dataset loaders give the JAX package's arrays, byte for byte."""
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+
+from dropout_hamiltonian_montecarlo_tpu.io import datasets as jds  # noqa: E402
+from dropout_hamiltonian_montecarlo_tpu_torch.io import datasets  # noqa: E402
+
+
+def test_synthetic_mnist_is_byte_identical(tmp_path, monkeypatch):
+    """The JAX loader caches its arrays next to its package; pointing its
+    module path into a temporary directory makes it regenerate them there,
+    so neither side reads or writes the repository's cache."""
+    monkeypatch.setattr(jds, "__file__", str(tmp_path / "pkg" / "io" / "datasets.py"))
+    monkeypatch.delenv("DHMC_DATA_DIR", raising=False)
+    monkeypatch.chdir(tmp_path)
+    assert datasets.mnist_provenance() == jds.mnist_provenance() == "synthetic-mnist"
+    X, y = datasets.mnist()
+    jX, jy = jds.mnist()
+    assert X.dtype == np.float32 and y.dtype == np.int32
+    assert X.shape == (60000, 784) and y.shape == (60000,)
+    assert X.tobytes() == np.asarray(jX).tobytes()
+    assert y.tobytes() == np.asarray(jy).tobytes()
+    # 8-bit grid k/256, exact in f32
+    np.testing.assert_array_equal(X * 256.0, np.round(X * 256.0))
+
+
+def test_digits_match():
+    X, y = datasets.digits()
+    jX, jy = jds.digits()
+    assert X.shape == (1797, 64)
+    assert X.tobytes() == np.asarray(jX).tobytes()
+    assert y.tobytes() == np.asarray(jy).tobytes()

@@ -1,0 +1,180 @@
+"""Parity of the port's Kronecker Gauss-Newton metric with the JAX package.
+
+On scikit-learn's digits (1797 x 64, real pixels), the JAX package writes its
+metric setup npz and the port loads it, and the other way round, so both
+sides use the same eigenbases (an eigenvector's sign is otherwise free).
+Everything is f32 on the CPU and differs only in summation order:
+rtol 1e-4 with atol 1e-4 * max|ref| on maps and gradients.
+"""
+
+import glob
+import os
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from dropout_hamiltonian_montecarlo_tpu.inference.hmc import HMCState as JaxHMCState  # noqa: E402
+from dropout_hamiltonian_montecarlo_tpu.models import Softmax as JaxSoftmax  # noqa: E402
+from dropout_hamiltonian_montecarlo_tpu.ops import kron_metric as jkm  # noqa: E402
+from dropout_hamiltonian_montecarlo_tpu_torch.inference.hmc import HMCState  # noqa: E402
+from dropout_hamiltonian_montecarlo_tpu_torch.io import datasets  # noqa: E402
+from dropout_hamiltonian_montecarlo_tpu_torch.models import Softmax  # noqa: E402
+from dropout_hamiltonian_montecarlo_tpu_torch.ops import kron_metric as tkm  # noqa: E402
+from dropout_hamiltonian_montecarlo_tpu_torch.utils.convert import (  # noqa: E402
+    load_gn_setup,
+    params_from_jax,
+)
+
+ALPHA = 1.0
+C = 3
+
+
+@pytest.fixture(scope="module")
+def setup(tmp_path_factory):
+    X, yi = datasets.digits()
+    Y = np.eye(10, dtype=np.float32)[yi]
+    d = X.shape[1]
+    cache = str(tmp_path_factory.mktemp("jax_setup"))
+    jmodel = JaxSoftmax(dim=d, n_classes=10, alpha=ALPHA)
+    with jax.default_matmul_precision("highest"):
+        jmetric, jaux, jqmap, _ = jkm.cached_gn_setup(
+            jnp.asarray(X), jnp.asarray(Y), jmodel, alpha=ALPHA, newton_steps=60,
+            cache_dir=cache, provenance="sklearn-digits")
+    (npz,) = glob.glob(os.path.join(cache, "kron_setup_*.npz"))
+    tmetric, taux, tqmap = load_gn_setup(npz, ALPHA, "cpu")
+    return dict(X=X, Y=Y, d=d, jmodel=jmodel, jmetric=jmetric, jaux=jaux,
+                jqmap=jqmap, tmetric=tmetric, taux=taux, tqmap=tqmap)
+
+
+def _rand_tree(rng, d, batch=(C,), scale=1.0):
+    return {"weights": (scale * rng.randn(*batch, d, 10)).astype(np.float32),
+            "bias": (scale * rng.randn(*batch, 10)).astype(np.float32)}
+
+
+def _close_tree(got, ref):
+    for k in ("weights", "bias"):
+        r = np.asarray(ref[k])
+        np.testing.assert_allclose(got[k].numpy(), r, rtol=1e-4,
+                                   atol=1e-4 * np.abs(r).max())
+
+
+def test_whiten_unwhiten_match_jax(setup):
+    rng = np.random.RandomState(0)
+    dq = _rand_tree(rng, setup["d"], scale=0.01)
+    e = _rand_tree(rng, setup["d"])
+    jm, tm = setup["jmetric"], setup["tmetric"]
+    with jax.default_matmul_precision("highest"):
+        ref_w = jax.vmap(jm.whiten)(dq)
+        ref_u = jax.vmap(jm.unwhiten)(e)
+    _close_tree(tm.whiten(params_from_jax(dq, "cpu")), ref_w)
+    _close_tree(tm.unwhiten(params_from_jax(e, "cpu")), ref_u)
+    # and the two are inverse
+    back = tm.whiten(tm.unwhiten(params_from_jax(e, "cpu")))
+    _close_tree(back, e)
+
+
+def test_kinetic_maps_and_laplace_draw_match_jax(setup):
+    """kinetic_energy, kinetic_grad (the Newton step's M^-1 g) and
+    sample_position with the JAX draw injected."""
+    rng = np.random.RandomState(6)
+    p = _rand_tree(rng, setup["d"], batch=(), scale=30.0)
+    jm, tm = setup["jmetric"], setup["tmetric"]
+    key = jax.random.key(7)
+    eps = jax.random.normal(key, (setup["d"] + 1, 10), jnp.float32)
+    with jax.default_matmul_precision("highest"):
+        ref_k = float(jm.kinetic_energy(p))
+        ref_g = jm.kinetic_grad(p)
+        ref_q = jm.sample_position(key, setup["jqmap"])
+    tp = params_from_jax(p, "cpu")
+    np.testing.assert_allclose(float(tm.kinetic_energy(tp)), ref_k, rtol=1e-4)
+    _close_tree(tm.kinetic_grad(tp), ref_g)
+    _close_tree(tm.sample_position(setup["tqmap"], torch.from_numpy(np.array(eps))), ref_q)
+
+
+def test_unwhiten_transpose_matches_linear_transpose(setup):
+    rng = np.random.RandomState(1)
+    g = _rand_tree(rng, setup["d"], batch=(), scale=10.0)
+    e_example = jax.tree_util.tree_map(jnp.zeros_like, setup["jqmap"])
+    with jax.default_matmul_precision("highest"):
+        (ref,) = jax.linear_transpose(setup["jmetric"].unwhiten, e_example)(g)
+    _close_tree(setup["tmetric"].unwhiten_transpose(params_from_jax(g, "cpu")), ref)
+
+
+def test_gauge_gibbs_matches_jax(setup):
+    rng = np.random.RandomState(2)
+    e = _rand_tree(rng, setup["d"])
+    grad = _rand_tree(rng, setup["d"])
+    logd = rng.randn(C).astype(np.float32) - 100.0
+    key = jax.random.key(3)
+    kw, kb = jax.random.split(key)      # the JAX move's own draws
+    eps_w = jax.random.normal(kw, (C, setup["d"]), jnp.float32)
+    eps_b = jax.random.normal(kb, (C,), jnp.float32)
+    with jax.default_matmul_precision("highest"):
+        jgibbs = jkm.make_whitened_gauge_gibbs(setup["jmetric"], setup["jaux"],
+                                               setup["jqmap"])
+        ref = jgibbs(key, JaxHMCState(jax.tree_util.tree_map(jnp.asarray, e),
+                                      jnp.asarray(logd),
+                                      jax.tree_util.tree_map(jnp.asarray, grad)))
+    tgibbs = tkm.make_whitened_gauge_gibbs(setup["tmetric"], setup["taux"],
+                                           setup["tqmap"])
+    got = tgibbs(HMCState(params_from_jax(e, "cpu"), torch.from_numpy(logd),
+                          params_from_jax(grad, "cpu")),
+                 eps_w=torch.from_numpy(np.array(eps_w)),
+                 eps_b=torch.from_numpy(np.array(eps_b)))
+    _close_tree(got.position, ref.position)
+    _close_tree(got.logdensity_grad, ref.logdensity_grad)
+    np.testing.assert_allclose(got.logdensity.numpy(), np.asarray(ref.logdensity),
+                               rtol=1e-5)
+
+
+def test_whitened_fused_vag_matches_jax(setup):
+    rng = np.random.RandomState(4)
+    E = _rand_tree(rng, setup["d"], scale=0.5)
+    with jax.default_matmul_precision("highest"):
+        jvag, _ = jkm.make_whitened_fused_vag(
+            setup["jmodel"], setup["jmetric"], setup["jqmap"],
+            (jnp.asarray(setup["X"]), jnp.asarray(setup["Y"])), use_pallas=False)
+        ref_v, ref_g = jvag(E)
+    model = Softmax(dim=setup["d"], n_classes=10, alpha=ALPHA)
+    batch = (torch.from_numpy(setup["X"]), torch.from_numpy(setup["Y"]))
+    vag, grad_only = tkm.make_whitened_fused_vag(model, setup["tmetric"],
+                                                 setup["tqmap"], batch)
+    v, g = vag(params_from_jax(E, "cpu"))
+    np.testing.assert_allclose(v.numpy(), np.asarray(ref_v), rtol=1e-5)
+    _close_tree(g, ref_g)
+    _close_tree(grad_only(params_from_jax(E, "cpu")), ref_g)
+
+
+def test_port_setup_loads_in_jax(setup, tmp_path):
+    """The port computes its own setup (Gram eigh, Newton MAP, Fisher), writes
+    it, reads it back from the cache, and the JAX package builds the same
+    metric from the file; the two independent Newton MAPs agree."""
+    X = torch.from_numpy(setup["X"])
+    Y = torch.from_numpy(setup["Y"])
+    model = Softmax(dim=setup["d"], n_classes=10, alpha=ALPHA)
+    metric, aux, qmap, hit = tkm.cached_gn_setup(X, Y, model, ALPHA, cache_dir=str(tmp_path),
+                                                 provenance="sklearn-digits")
+    assert not hit and set(aux["timings"]) == {"gram_eigh", "newton_map", "class_fisher"}
+    metric2, _, qmap2, hit2 = tkm.cached_gn_setup(X, Y, model, ALPHA, cache_dir=str(tmp_path),
+                                                  provenance="sklearn-digits")
+    assert hit2
+    np.testing.assert_array_equal(qmap2["weights"].numpy(), qmap["weights"].numpy())
+
+    (npz,) = glob.glob(str(tmp_path / "kron_setup_torch_*.npz"))
+    with np.load(npz) as z:
+        assert set(z.files) == {"s_g", "U_g", "s_a", "U_a", "qw", "qb"}
+        jmetric = jkm.softmax_gauss_newton_metric(
+            jnp.asarray(setup["X"]), 10, alpha=ALPHA, gram=(z["s_g"], z["U_g"]),
+            fisher=(z["s_a"], z["U_a"]), augmented=True)
+    rng = np.random.RandomState(5)
+    dq = _rand_tree(rng, setup["d"], scale=0.01)
+    with jax.default_matmul_precision("highest"):
+        ref = jax.vmap(jmetric.whiten)(dq)
+    _close_tree(metric2.whiten(params_from_jax(dq, "cpu")), ref)
+    for k in ("weights", "bias"):
+        r = np.asarray(setup["jqmap"][k])
+        np.testing.assert_allclose(qmap[k].numpy(), r, atol=1e-3 * np.abs(r).max())

@@ -1,0 +1,174 @@
+"""The whole slice (setup -> whitened chain-batched HMC -> dual-averaging
+warmup -> gauge Gibbs -> draws) in both packages, on the CPU at small size.
+
+Both start from the same metric-setup npz (written by the JAX package, read
+by the port) on the first 400 rows of scikit-learn's digits.  Their random
+streams differ, so the comparison is statistical: mean acceptance within
+0.1, median adapted step sizes within a factor of 1.5, and whitened draws
+with mean ~0 and variance ~1 in both.  Also: the port's bench entry point on
+the CPU, and the port's import without jax.
+"""
+
+import glob
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from dropout_hamiltonian_montecarlo_tpu.inference import hmc as jhmc  # noqa: E402
+from dropout_hamiltonian_montecarlo_tpu.inference.warmup import (  # noqa: E402
+    run_warmup as jax_run_warmup,
+)
+from dropout_hamiltonian_montecarlo_tpu.models import Softmax as JaxSoftmax  # noqa: E402
+from dropout_hamiltonian_montecarlo_tpu.ops import kron_metric as jkm  # noqa: E402
+from dropout_hamiltonian_montecarlo_tpu_torch import bench  # noqa: E402
+from dropout_hamiltonian_montecarlo_tpu_torch.inference import hmc  # noqa: E402
+from dropout_hamiltonian_montecarlo_tpu_torch.inference.warmup import run_warmup  # noqa: E402
+from dropout_hamiltonian_montecarlo_tpu_torch.io import datasets  # noqa: E402
+from dropout_hamiltonian_montecarlo_tpu_torch.models import Softmax  # noqa: E402
+from dropout_hamiltonian_montecarlo_tpu_torch.ops import kron_metric as tkm  # noqa: E402
+from dropout_hamiltonian_montecarlo_tpu_torch.utils.convert import load_gn_setup  # noqa: E402
+
+ALPHA, C, L, WARMUP, DRAWS, ROWS = 1.0, 4, 10, 20, 40, 400
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _run_jax(X, Y, jmodel, jmetric, jaux, jqmap):
+    d = X.shape[1]
+    vag, _ = jkm.make_whitened_fused_vag(jmodel, jmetric, jqmap, (X, Y), use_pallas=False)
+    gibbs = jkm.make_whitened_gauge_gibbs(jmetric, jaux, jqmap)
+    kernel = jhmc.build_batched_kernel(vag, L)
+
+    @jax.jit
+    def run(key):
+        k0, k1 = jax.random.split(jax.random.fold_in(key, 0))
+        e0 = {"weights": jax.random.normal(k0, (C, d, 10)),
+              "bias": jax.random.normal(k1, (C, 10))}
+        warm = jax_run_warmup(kernel, jhmc.batched_init(e0, vag), jax.random.fold_in(key, 1),
+                              WARMUP, initial_step_size=jnp.full((C,), 0.1),
+                              target_acceptance=0.5, adapt_mass=False)
+
+        def body(s, k):
+            ns, info = kernel(k, s, warm.step_size, warm.inv_mass)
+            ns = gibbs(jax.random.fold_in(k, 1), ns)
+            return ns, (ns.position, info.acceptance_prob)
+
+        st = jhmc.batched_init(warm.state.position, vag)
+        _, (pos, acc) = jax.lax.scan(body, st, jax.random.split(jax.random.fold_in(key, 2),
+                                                                DRAWS))
+        return warm.step_size, pos, acc
+
+    with jax.default_matmul_precision("highest"):
+        ss, pos, acc = run(jax.random.key(0))
+    draws = np.concatenate([np.asarray(pos["weights"]).reshape(DRAWS, C, -1),
+                            np.asarray(pos["bias"])], axis=2)
+    return np.asarray(ss), draws, float(np.mean(acc))
+
+
+def _run_torch(X, Y, metric, aux, qmap):
+    d = X.shape[1]
+    model = Softmax(dim=d, n_classes=10, alpha=ALPHA)
+    batch = (torch.from_numpy(X), torch.from_numpy(Y))
+    vag, grad_only = tkm.make_whitened_fused_vag(model, metric, qmap, batch)
+    gibbs = tkm.make_whitened_gauge_gibbs(metric, aux, qmap)
+    kernel = hmc.build_batched_kernel(vag, L, grad_fn=grad_only)
+    gen = torch.Generator().manual_seed(0)
+    e0 = {"weights": torch.randn((C, d, 10), generator=gen),
+          "bias": torch.randn((C, 10), generator=gen)}
+    warm = run_warmup(kernel, hmc.batched_init(e0, vag), WARMUP,
+                      initial_step_size=torch.full((C,), 0.1), target_acceptance=0.5,
+                      adapt_mass=False, generator=gen)
+    st = hmc.batched_init(warm.state.position, vag)
+    draws, acc = [], []
+    for _ in range(DRAWS):
+        st, info = kernel(st, warm.step_size, warm.inv_mass, generator=gen)
+        st = gibbs(st, generator=gen)
+        draws.append(torch.cat([st.position["weights"].reshape(C, -1),
+                                st.position["bias"]], dim=1))
+        acc.append(info.acceptance_prob)
+    return (warm.step_size.numpy(), torch.stack(draws).numpy(),
+            float(torch.stack(acc).mean()))
+
+
+def test_slice_statistical_parity(tmp_path):
+    X, yi = datasets.digits()
+    X, yi = X[:ROWS], yi[:ROWS]
+    Y = np.eye(10, dtype=np.float32)[yi]
+    jmodel = JaxSoftmax(dim=X.shape[1], n_classes=10, alpha=ALPHA)
+    with jax.default_matmul_precision("highest"):
+        jmetric, jaux, jqmap, _ = jkm.cached_gn_setup(
+            jnp.asarray(X), jnp.asarray(Y), jmodel, alpha=ALPHA, newton_steps=60,
+            cache_dir=str(tmp_path), provenance="digits-400")
+    (npz,) = glob.glob(str(tmp_path / "kron_setup_*.npz"))
+    metric, aux, qmap = load_gn_setup(npz, ALPHA, "cpu")
+
+    jss, jdraws, jacc = _run_jax(X, Y, jmodel, jmetric, jaux, jqmap)
+    tss, tdraws, tacc = _run_torch(X, Y, metric, aux, qmap)
+
+    assert abs(tacc - jacc) < 0.1, (tacc, jacc)
+    ratio = np.median(tss) / np.median(jss)
+    assert 1 / 1.5 < ratio < 1.5, (np.median(tss), np.median(jss))
+    for draws in (jdraws, tdraws):     # (draws, chains, 650) whitened
+        assert np.isfinite(draws).all()
+        flat = draws.reshape(-1, draws.shape[-1])
+        assert abs(flat.mean()) < 0.1
+        assert 0.7 < flat.var(axis=0).mean() < 1.3
+
+
+def test_bench_entry_point_on_cpu():
+    env = dict(os.environ, BENCH_DATASET="digits", BENCH_CHAINS="4", BENCH_WARMUP="10",
+               BENCH_DRAWS="20")
+    proc = subprocess.run(
+        [sys.executable, "-m", "dropout_hamiltonian_montecarlo_tpu_torch.bench",
+         "--device", "cpu"], cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    assert len(lines) == 1
+    out = json.loads(lines[0])
+    assert set(out) == {"metric", "value", "unit", "vs_baseline", "device", "detail"}
+    assert out["metric"] == "median_ess_per_sec_mnist_softmax_hmc"
+    assert out["device"] == "cpu"
+    det = out["detail"]
+    assert det["chains"] == 4 and det["draws"] == 20 and det["path"] == "torch-plain"
+    assert det["kernel_launches"] == {"value_and_grad": 0, "grad": 0}
+    assert np.isfinite(out["value"]) and 0.0 < det["acceptance"] <= 1.0
+
+
+@pytest.mark.parametrize("env", [{"BENCH_SAMPLER": "nuts"}, {"BENCH_CHEES": "1"},
+                                 {"BENCH_CHAIN_SHARDS": "2"}])
+def test_bench_unported_options_raise(env, monkeypatch):
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        bench.main(["--device", "cpu"])
+
+
+def test_bench_cuda_default_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench.run(device="cuda")
+
+
+def test_port_imports_without_jax():
+    code = (
+        "import sys, importlib, pkgutil\n"
+        "sys.modules['jax'] = None\n"
+        "import dropout_hamiltonian_montecarlo_tpu_torch as p\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "assert not any(k == 'jax' or k.startswith('jax.') for k, v in sys.modules.items()"
+        " if v is not None)\n"
+        "print(len(names))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip()) >= 20
