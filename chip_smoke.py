@@ -5,11 +5,14 @@
 
 Phases, one line each (any failure exits non-zero):
   1. device: the card's name, and its name and power limit from nvidia-smi;
-  2. build: compile csrc/softmax_glm.cu for sm_90a (seconds, ptxas report);
+  2. build: compile csrc/softmax_glm.cu for sm_90a (seconds, ptxas report,
+     and the count of HGMMA tensor-core instructions in the library's SASS);
   3. kernel against plain: both variants of the fused softmax-GLM kernel
-     against the plain PyTorch version on the same inputs, at a ragged small
-     shape and at the bench shape (N=60000, D=784, K=10, C=128, X on the
-     8-bit grid), with per-call times from CUDA events;
+     against the plain PyTorch version on the same inputs (f32, and float64
+     for the value), and two calls against each other (bit-identical), at
+     small ragged shapes (X on the 8-bit grid; X off it, which runs the X_lo
+     passes; K = 7) and at the bench shape (N=60000, D=784, K=10, C=128, X
+     on the 8-bit grid); per-call and per-stage times from CUDA events;
   4. main path: the port bench (synthetic MNIST 60000 x 784, full metric
      setup, 128 chains, L=10, target 0.5) cut to 50 warmup steps and 100
      draws; its JSON line, checks on its outputs, and the kernel launch
@@ -23,14 +26,18 @@ import json
 import math
 import subprocess
 import sys
+from pathlib import Path
 
 WARMUP, DRAWS, CHAINS, L = 50, 100, 128, 10
 SOURCE = "dropout_hamiltonian_montecarlo_tpu_torch/csrc/softmax_glm.cu"
 REPLACES = "dropout_hamiltonian_montecarlo_tpu/ops/pallas_glm.py:98"
 # tolerances: the value feeds the MH accept, whose energy delta is O(1), so
-# 0.1 nat per chain; gradients within rtol 1e-3 and atol 3.9e-3 max|g| (the
-# JAX kernel's fast-mode bound), and also within 1e-4 max|g| absolute, which
-# a single-pass bf16 backward (~1.6e-3 max|g|) would miss: f32 accuracy
+# 0.1 nat per chain, against the f32 plain version and against a float64
+# evaluation of the same formula (the f32 result's own ulp at |ll| ~ 1.5e5 is
+# 0.0156 nat, so f32-plain alone cannot show the kernel's error); gradients
+# within rtol 1e-3 and atol 3.9e-3 max|g| (the JAX kernel's fast-mode bound),
+# and also within 1e-4 max|g| absolute, which a single-pass bf16 backward
+# (~1.6e-3 max|g|) would miss: f32 accuracy
 VALUE_ATOL = 0.1
 GRAD_RTOL, GRAD_ATOL_FRAC = 1e-3, 3.9e-3
 F32_ATOL_FRAC = 1e-4
@@ -40,9 +47,12 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke FAILED: {msg}")
 
 
-def make_inputs(torch, n, d, k, c, seed, w_scale):
+def make_inputs(torch, n, d, k, c, seed, w_scale, grid=True):
     g = torch.Generator(device="cuda").manual_seed(seed)
-    X = torch.randint(0, 256, (n, d), generator=g, device="cuda").float() / 256.0
+    if grid:   # the 8-bit grid k/256 of the bench data: exact in bf16
+        X = torch.randint(0, 256, (n, d), generator=g, device="cuda").float() / 256.0
+    else:
+        X = torch.randn((n, d), generator=g, device="cuda")
     yi = torch.randint(0, k, (n,), generator=g, device="cuda")
     Y = torch.nn.functional.one_hot(yi, k).float()
     W = w_scale * torch.randn((c, d, k), generator=g, device="cuda")
@@ -50,18 +60,29 @@ def make_inputs(torch, n, d, k, c, seed, w_scale):
     return X, Y, W, b
 
 
-def compare(torch, sg, X, Y, W, b, alpha):
+def compare(torch, sg, X, Y, W, b, alpha, x_split):
     """Kernel (both variants) against plain; returns the max abs errors and,
     for the gradients, the max abs errors over max|g|."""
     ref_v, ref_gw, ref_gb = sg.softmax_value_and_grad_plain(X, Y, W, b)
     ref_v = ref_v + sg.log_prior_batched(W, b, alpha)
     ref_gw, ref_gb = ref_gw - alpha * W, ref_gb - alpha * b
-    v, gw, gb = sg.softmax_value_and_grad(X, Y, W, b, alpha, fwd_full=True)
-    v2, gw2, gb2 = sg.softmax_value_and_grad(X, Y, W, b, alpha, fwd_full=False)
+    ll64, _, _ = sg.softmax_value_and_grad_plain(X.double(), Y.double(), W.double(),
+                                                 b.double())
+    v, gw, gb = sg.softmax_value_and_grad(X, Y, W, b, alpha, fwd_full=True, x_split=x_split)
+    v2, gw2, gb2 = sg.softmax_value_and_grad(X, Y, W, b, alpha, fwd_full=False,
+                                             x_split=x_split)
+    again = (sg.softmax_value_and_grad(X, Y, W, b, alpha, fwd_full=True, x_split=x_split)
+             + sg.softmax_value_and_grad(X, Y, W, b, alpha, fwd_full=False, x_split=x_split))
     torch.cuda.synchronize()
     if v2 is not None:
         fail("grad-only variant returned a value")
-    errs = {"value": float((v - ref_v).abs().max())}
+    for name, first, second in zip(("value", "gw", "gb", "-", "gw_gradonly", "gb_gradonly"),
+                                   (v, gw, gb, v2, gw2, gb2), again):
+        if first is not None and not torch.equal(first, second):
+            fail(f"{name}: two calls on the same inputs differ")
+    v64 = v.double() - sg.log_prior_batched(W, b, alpha).double()
+    errs = {"value": float((v - ref_v).abs().max()),
+            "value_vs_f64": float((v64 - ll64).abs().max())}
     for name, got, ref in (("gw", gw, ref_gw), ("gb", gb, ref_gb),
                            ("gw_gradonly", gw2, ref_gw), ("gb_gradonly", gb2, ref_gb)):
         if not bool(torch.isfinite(got).all()):
@@ -77,8 +98,9 @@ def compare(torch, sg, X, Y, W, b, alpha):
         if errs[name] > F32_ATOL_FRAC * gmax:
             fail(f"{name}: max abs err {errs[name]:.3g} > {F32_ATOL_FRAC} max|g| "
                  f"({gmax:.4g}): not f32-accurate")
-    if errs["value"] > VALUE_ATOL:
-        fail(f"value error {errs['value']:.4g} > {VALUE_ATOL} nat")
+    for key in ("value", "value_vs_f64"):
+        if errs[key] > VALUE_ATOL:
+            fail(f"{key} error {errs[key]:.4g} > {VALUE_ATOL} nat")
     return errs
 
 
@@ -89,7 +111,7 @@ def main() -> None:
         fail("no CUDA device")
     from dropout_hamiltonian_montecarlo_tpu_torch import bench, full_f32_precision
     from dropout_hamiltonian_montecarlo_tpu_torch.ops import softmax_glm as sg
-    from dropout_hamiltonian_montecarlo_tpu_torch.ops.cuda_build import BUILD_INFO
+    from dropout_hamiltonian_montecarlo_tpu_torch.ops.cuda_build import BUILD_INFO, find_nvcc
     from dropout_hamiltonian_montecarlo_tpu_torch.utils.profiling import cuda_time_ms
 
     full_f32_precision()
@@ -105,26 +127,50 @@ def main() -> None:
 
     # ---- 2. build -------------------------------------------------------
     build_s = sg.build_kernel()
-    ptxas = [ln.strip() for ln in BUILD_INFO["softmax_glm"]["ptxas"].splitlines()
-             if "registers" in ln or "spill" in ln]
-    print(f"phase 2 build: {build_s:.1f}s; ptxas: {' | '.join(ptxas)}", flush=True)
+    info = BUILD_INFO["softmax_glm"]
+    ptxas = [ln.strip() for ln in info["ptxas"].splitlines()
+             if "registers" in ln or ("spill" in ln and " 0 bytes spill stores" not in ln)]
+    sass = subprocess.run([str(Path(find_nvcc()).with_name("cuobjdump")), "-sass", info["path"]],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    hgmma = sass.count("HGMMA")
+    print(f"phase 2 build: {build_s:.1f}s; HGMMA instructions in SASS: {hgmma}; "
+          f"ptxas: {' | '.join(ptxas)}", flush=True)
+    if hgmma == 0:
+        fail("the kernel library holds no HGMMA (wgmma) instruction")
 
     # ---- 3. kernel against plain ---------------------------------------
     alpha = 1.0
-    small = compare(torch, sg, *make_inputs(torch, 1000, 64, 10, 3, 0, 0.3), alpha)
+    small = {}
+    for label, shape, grid in (("N=1000,D=64,K=10,C=3", (1000, 64, 10, 3), True),
+                               ("N=257,D=33,K=10,C=17,off-grid", (257, 33, 10, 17), False),
+                               ("N=300,D=50,K=7,C=20", (300, 50, 7, 20), True)):
+        X, Y, W, b = make_inputs(torch, *shape, 0, 0.3, grid)
+        split = sg.split_bf16_input(X)
+        if (split[1] is None) != grid:
+            fail(f"{label}: X_lo piece {'absent' if grid else 'present'} on the wrong grid")
+        small[label] = compare(torch, sg, X, Y, W, b, alpha, split)
     Xb, Yb, Wb, bb = make_inputs(torch, 60000, 784, 10, CHAINS, 1, 0.05)
-    big = compare(torch, sg, Xb, Yb, Wb, bb, alpha)
-    ms_full = cuda_time_ms(lambda: sg.softmax_value_and_grad(Xb, Yb, Wb, bb, alpha), 10, 3)
-    ms_grad = cuda_time_ms(
-        lambda: sg.softmax_value_and_grad(Xb, Yb, Wb, bb, alpha, fwd_full=False), 10, 3)
+    split = sg.split_bf16_input(Xb)
+    big = compare(torch, sg, Xb, Yb, Wb, bb, alpha, split)
+    print("phase 3 kernel vs plain, errors: small " + json.dumps(small)
+          + "; bench(N=60000,D=784,K=10,C=128) " + json.dumps(big), flush=True)
+    stages = {}
+    for name, full in (("value+grad", True), ("grad-only", False)):
+        call = sg.KernelCall(split, Yb, Wb, bb, with_value=full)
+        stages[name] = {st: cuda_time_ms(getattr(call, st), 10, 2)
+                        for st in ("forward", "backward", "finish")}
+    print("phase 3 ms per stage: " + json.dumps(stages), flush=True)
+    ms_full = cuda_time_ms(
+        lambda: sg.softmax_value_and_grad(Xb, Yb, Wb, bb, alpha, x_split=split), 10, 3)
+    ms_grad = cuda_time_ms(lambda: sg.softmax_value_and_grad(
+        Xb, Yb, Wb, bb, alpha, fwd_full=False, x_split=split), 10, 3)
     ms_plain = cuda_time_ms(lambda: sg.softmax_value_and_grad_plain(Xb, Yb, Wb, bb), 10, 3)
     flop = 2 * 2 * 60000 * 784 * 10 * CHAINS
-    print("phase 3 kernel vs plain: small(N=1000,D=64,C=3) errors "
-          f"{json.dumps(small)}; bench(N=60000,D=784,C=128) errors {json.dumps(big)}; "
-          f"ms/call value+grad {ms_full:.3f} grad-only {ms_grad:.3f} plain {ms_plain:.3f}; "
-          f"TFLOP/s value+grad {flop / ms_full / 1e9:.2f} plain {flop / ms_plain / 1e9:.2f}",
-          flush=True)
-    del Xb, Yb, Wb, bb
+    print(f"phase 3 ms/call value+grad {ms_full:.3f} grad-only {ms_grad:.3f} plain "
+          f"{ms_plain:.3f}; TFLOP/s (two f32-equivalent GEMMs) value+grad "
+          f"{flop / ms_full / 1e9:.2f} grad-only {flop / ms_grad / 1e9:.2f} plain "
+          f"{flop / ms_plain / 1e9:.2f}", flush=True)
+    del Xb, Yb, Wb, bb, split, call
     torch.cuda.empty_cache()
 
     # ---- 4. main path ---------------------------------------------------

@@ -6,268 +6,601 @@
 //
 //     Z  = X W + b                     (per chain: W (D, K), b (K,))
 //     ll = sum_n sum_k y_nk (z_nk - logsumexp_k z_n)
-//     R  = Y - softmax(Z)
+//     R  = Y - softmax(Z)              (rows >= N masked to 0)
 //     gW = X^T R,  gb = sum_n R_n
 //
 // The Gaussian prior is added by the Python wrapper, as on the TPU.
 //
-// What bounds it: one call is two GEMMs of 2*N*D*(C*K) FLOP each (about
-// 240 GFLOP at N=60000, D=784, K=10, C=128) against one read of X (188 MB in
-// f32), so it is compute-bound.  This first version keeps everything in f32
-// FMA on the CUDA cores (the value feeds the MH accept and must be f32
-// accurate); moving the GEMMs to wgmma tensor cores is later work.
+// Precision.  The value feeds the MH accept and the gradients must stay
+// f32-accurate, so the GEMMs run on the bf16 tensor cores on exact bf16
+// pieces of their operands (cut by the wrapper): X is exact in bf16 on the
+// 8-bit grid (X = X_hi; an off-grid X adds X_lo), W is cut into 3 pieces for
+// the value variant and 2 for grad-only, R into 2.  Every product of bf16
+// pieces is exact in the f32 accumulators:
+//     Z  = X_hi (W_0 + W_1 [+ W_2]) [+ X_lo W_0]
+//     gW = X_hi^T (R_hi + R_lo) [+ X_lo^T R_hi]
+// The tensor cores add with truncation, so accumulation chains are kept
+// short: the value variant adds each product into f32 registers with
+// round-to-nearest adds ("promotion", see consume), and the gradient GEMM's
+// reduction over N is cut into slices of at most 160 steps (the wrapper).
 //
-// Layout: the wrapper passes W as W2 (D, C*K) with chain-major columns
-// c*K + k, so one chain's K logits are adjacent and one thread owns them.
+// What bounds it.  One call is 4 (grad-only) or 5 (value) bf16 GEMM passes
+// of 2*N*D*(C*K) FLOP (120 GFLOP each at N=60000, D=784, K=10, C=128).  A
+// 128 x 160 output tile reads ~56 KB of A and B tiles per 64-deep step, so
+// the GEMM main loops run at the rate at which L2 feeds the SMs: on an H100
+// SXM (700 W) the gradient GEMM moves ~6.6 TB/s of tiles, ~55% of the bf16
+// peak.  Each stage therefore loads its A tile once for all the B pieces it
+// multiplies, and the forward blocks of a row tile run next to each other (X
+// from HBM once, from L2 after).  The forward's epilogue (Z staging, softmax,
+// R^T stores) takes about as long as its main loop again (per 128-row tile:
+// 13 us of main loop, 8.5 us of epilogue, grad-only) and nothing overlaps it,
+// since one block fills an SM; overlapping it is the next step.
 //
-// Reduction design.  On the TPU the grid ran in order and summed into output
-// blocks revisited across grid steps.  Here blocks run in parallel in no
-// order, so the grid is (row tile x chain group) and every block writes its
-// partial sums into its OWN slice of a scratch buffer:
-//     gw_part (n_tiles, D, C*K), gb_part (n_tiles, C*K), ll_part (n_tiles, C).
-// A second small kernel sums the slices in a fixed order.  The result is
-// deterministic (no atomics), which keeps every parity check exact from run
-// to run.  Inside a block:
-//   1. Z tile (128 rows x 16 chains x K) over the full D, X and W staged
-//      through shared memory in 16-wide D slices; each thread owns 8 rows of
-//      one chain (8*K accumulators in registers).
-//   2. Per-(row, chain) stable softmax in registers; ll and R = Y - p; R goes
-//      to shared memory.  Rows >= N are masked here (X is never padded).
-//   3. gW partial = X_tile^T R over 128-wide D chunks, X re-read (from L2)
-//      through shared memory in 16-row slices; each thread owns 8 d-rows of
-//      one chain.
-// The kernel allocates nothing and does not synchronise.
+// Design: three kernels, no atomics, deterministic.
+//   1. glm_forward_kernel: one block per (128-row tile, chain group of 16
+//      chains; 8 for the value variant from K = 10).  A producer warp streams
+//      stages (X tile + every W piece tile of a 64-wide D step) through a ring
+//      in shared memory with TMA (128-byte swizzle; the ragged D and N edges
+//      read as zeros), two consumer warpgroups run wgmma m64n(G*K)k16 into f32
+//      registers.  Epilogue: Z is staged through shared memory (in the ring),
+//      the per-(row, chain) stable softmax gives ll (per tile and chain) and
+//      R, and R is written transposed, as bf16 hi and lo pieces R^T
+//      (2, C*K, N): the layout the gradient GEMM reads K-major.
+//   2. glm_backward_kernel: gW_aug (D+1, C*K) = X_aug^T R, a wgmma GEMM with
+//      A = X^T (D+1, N) and B = R^T (C*K, N), both K-major over N.  Row D of
+//      X_aug^T is all ones, so row D of the product is gb.  Output tiles are
+//      128 x 160; the N reduction is cut into S slices (the tiles fill the SMs
+//      and each chain stays short), each slice writing its own partial.
+//   3. glm_finish_kernel: sums the S partials and the per-tile ll partials in
+//      a fixed order, in double, and writes gW in the (C, D, K) layout.
+// Scratch per call: R^T (2 x C*K x N bf16, 307 MB at the bench shape), S
+// partials of (D+1) x C*K floats (S = 7 there: 28 MB), and N/128 x C floats.
+// The kernels allocate nothing and do not synchronise.
 
+#include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "wgmma.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kChains = 16;                 // chains per block (chain group)
-constexpr int kGroups = kThreads / kChains; // 16 row groups / d groups
-constexpr int kRowsPerThread = 8;
-constexpr int kTileRows = kRowsPerThread * kGroups;  // 128 rows per block
-constexpr int kDStep = 16;                  // D slice per stage in step 1
-constexpr int kXsPitch = kTileRows + 4;     // transposed X slice pitch (16B aligned)
-constexpr int kDPerThread = 8;
-constexpr int kDChunk = kDPerThread * kGroups;  // 128 gW rows per pass in step 3
-constexpr int kRowStep = 16;                // rows per stage in step 3
+constexpr int kBM = 128;                 // rows of A per block: two warpgroups of 64
+constexpr int kBK = 64;                  // reduction step: 64 bf16 = one 128-byte row
+constexpr int kConsumerThreads = 256;    // two consumer warpgroups
+constexpr int kThreads = kConsumerThreads + 32;   // + one producer warp
+constexpr int kBwdBN = 160;              // output columns per backward block
+constexpr int kRingBudget = 196608;      // bytes of shared memory for the stage ring
+constexpr int kMaxStages = 6;
 
-template <int K>
-struct Layout {
-  static constexpr int GK = kChains * K;                  // columns per block
-  static constexpr int rs = 0;                            // R tile (kTileRows, GK)
-  static constexpr int ys = rs + kTileRows * GK;          // Y tile (kTileRows, K)
-  static constexpr int un = ys + ((kTileRows * K + 3) / 4) * 4;
-  // union: step 1 uses xs (kDStep, kXsPitch) + ws (kDStep, GK);
-  //        step 3 uses xb (kRowStep, kDChunk)
-  static constexpr int xs = un;
-  static constexpr int ws = xs + kDStep * kXsPitch;
-  static constexpr int xb = un;
-  static constexpr int un_size_1 = kDStep * kXsPitch + kDStep * GK;
-  static constexpr int un_size_3 = kRowStep * kDChunk;
-  static constexpr int un_size = un_size_1 > un_size_3 ? un_size_1 : un_size_3;
-  static constexpr int red = un + ((un_size + 3) / 4) * 4;  // (kGroups, kChains)
-  static constexpr int total = red + kGroups * kChains;
-  static constexpr size_t bytes = sizeof(float) * (size_t)total;
+// Shared-memory layout of a block whose B tiles are BN rows wide and whose
+// stages hold one A tile and the NB B tiles (pieces) that multiply it:
+// [ring of stages: A (128 x 64 bf16), B_0 .. B_{NB-1} (BN x 64 bf16)]
+// [full barriers] [empty barriers] [256 floats of reduction scratch]
+// [the forward's Y tile (128 x K <= 16 floats)] [its bias (BN floats)].
+// The forward epilogue reuses the ring for Z (128 x (BN + 1) floats).  One
+// block fills an SM: two would leave 96 registers a thread, fewer than the 80
+// accumulators of a 160-wide tile need.
+template <int BN_, int NB_>
+struct Ring {
+  static constexpr int BN = BN_;
+  static constexpr int NB = NB_;
+  static constexpr int a_bytes = kBM * kBK * 2;
+  static constexpr int b_bytes = BN * kBK * 2;
+  static constexpr int stage_bytes = a_bytes + NB * b_bytes;
+  static constexpr int budget = kRingBudget > 2 * stage_bytes ? kRingBudget : 2 * stage_bytes;
+  static constexpr int stages =
+      budget / stage_bytes < kMaxStages ? budget / stage_bytes : kMaxStages;
+  static constexpr int ring_bytes = stages * stage_bytes;
+  static constexpr int zpitch = BN + 1;
+  static constexpr int bar_offset = ring_bytes;
+  static constexpr int red_offset = bar_offset + 2 * stages * 8;
+  static constexpr int ys_offset = red_offset + kConsumerThreads * 4;
+  static constexpr int bs_offset = ys_offset + kBM * 16 * 4;
+  static constexpr int smem_bytes = 1024 + bs_offset + BN * 4;   // +1024: alignment
+  static_assert(BN % 8 == 0 && BN >= 32 && BN <= 256, "wgmma width");
+  static_assert(b_bytes % 1024 == 0, "128-byte swizzled tiles must start 1024-byte aligned");
+  static_assert(kBM * zpitch * 4 <= ring_bytes, "Z staging must fit in the ring");
+  static_assert(smem_bytes <= 232448, "shared memory per block");
 };
 
-template <int K, bool WITH_VALUE>
-__global__ void __launch_bounds__(kThreads, 2)
-softmax_glm_tile_kernel(const float* __restrict__ X,   // (N, D)
-                        const float* __restrict__ Y,   // (N, K)
-                        const float* __restrict__ W2,  // (D, C*K)
-                        const float* __restrict__ b2,  // (C*K,)
-                        float* __restrict__ ll_part,   // (n_tiles, C)
-                        float* __restrict__ gw_part,   // (n_tiles, D, C*K)
-                        float* __restrict__ gb_part,   // (n_tiles, C*K)
-                        int N, int D, int C) {
-  using L = Layout<K>;
-  constexpr int GK = L::GK;
-  extern __shared__ __align__(16) float smem[];
-  float* Rs = smem + L::rs;
-  float* Ys = smem + L::ys;
-  float* Xs = smem + L::xs;
-  float* Ws = smem + L::ws;
-  float* Xb = smem + L::xb;
-  float* red = smem + L::red;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  const int tid = threadIdx.x;
-  const int c = tid % kChains;   // chain within the group
-  const int g = tid / kChains;   // row group (step 1) / d group (step 3)
-  const int tile = blockIdx.x;
-  const int row0 = tile * kTileRows;
-  const int CK = C * K;
-  const int col0 = blockIdx.y * GK;   // first global column of this block
-  const int chain = blockIdx.y * kChains + c;
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
 
-  // Y tile: rows >= N load as 0, which also zeroes their ll terms.
-  for (int i = tid; i < kTileRows * K; i += kThreads) {
-    const int r = i / K;
-    const int gr = row0 + r;
-    Ys[i] = gr < N ? Y[(size_t)gr * K + (i - r * K)] : 0.f;
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// Returns once the barrier's phase of the given parity has completed.  A wait
+// that never ends (a pipeline bug) traps after ~2^28 polls, so it surfaces as
+// a launch error instead of a hung card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    if (polls == (1u << 28)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
   }
+}
 
-  // ---- step 1: Z = X_tile W over the full D ------------------------------
-  float acc[kRowsPerThread][K];
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i)
-#pragma unroll
-    for (int k = 0; k < K; ++k) acc[i][k] = 0.f;
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
 
-  for (int d0 = 0; d0 < D; d0 += kDStep) {
-    for (int i = tid; i < kTileRows * kDStep; i += kThreads) {
-      const int r = i / kDStep, dd = i - r * kDStep;
-      const int gr = row0 + r, gd = d0 + dd;
-      Xs[dd * kXsPitch + r] = (gr < N && gd < D) ? X[(size_t)gr * D + gd] : 0.f;
-    }
-    for (int i = tid; i < kDStep * GK; i += kThreads) {
-      const int dd = i / GK, j = i - dd * GK;
-      const int gd = d0 + dd, gc = col0 + j;
-      Ws[i] = (gd < D && gc < CK) ? W2[(size_t)gd * CK + gc] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int dd = 0; dd < kDStep; ++dd) {
-      const float4 xa = *reinterpret_cast<const float4*>(&Xs[dd * kXsPitch + g * kRowsPerThread]);
-      const float4 xc = *reinterpret_cast<const float4*>(&Xs[dd * kXsPitch + g * kRowsPerThread + 4]);
-      const float xr[kRowsPerThread] = {xa.x, xa.y, xa.z, xa.w, xc.x, xc.y, xc.z, xc.w};
-      float wr[K];
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma matrix descriptor of a K-major tile of 128-byte rows, 128-byte
+// swizzled (as TMA writes it): 8-row groups 1024 bytes apart.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)   // start address
+         | (static_cast<uint64_t>(1) << 16)              // leading offset (unused here)
+         | (static_cast<uint64_t>(1024 >> 4) << 32)      // stride offset: 8 rows
+         | (static_cast<uint64_t>(1) << 62);             // 128-byte swizzle
+}
+
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma statements.
+template <int R>
+__device__ __forceinline__ void fence_operands(float (&d)[R]) {
 #pragma unroll
-      for (int k = 0; k < K; ++k) wr[k] = Ws[dd * GK + c * K + k];
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i)
-#pragma unroll
-        for (int k = 0; k < K; ++k) acc[i][k] = fmaf(xr[i], wr[k], acc[i][k]);
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(kConsumerThreads) : "memory");
+}
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+// full[s]: the stage's loads landed; empty[s]: its consumers are done.
+template <class R>
+__device__ __forceinline__ void init_barriers(uint64_t* full, uint64_t* empty) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < R::stages; ++s) {
+      mbar_init(smem_u32(&full[s]), 1);
+      mbar_init(smem_u32(&empty[s]), kConsumerThreads / 32);   // one arrival per consumer warp
     }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-
-  // ---- step 2: per-(row, chain) softmax, ll and R ------------------------
-  float bias[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) bias[k] = chain < C ? b2[chain * K + k] : 0.f;
-
-  float ll = 0.f;
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    const int r = g * kRowsPerThread + i;
-    const float valid = (row0 + r < N) ? 1.f : 0.f;
-    float z[K];
-    float m = -INFINITY;
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      z[k] = acc[i][k] + bias[k];
-      m = fmaxf(m, z[k]);
-    }
-    float s = 0.f;
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      z[k] -= m;               // z - max
-      s += expf(z[k]);
-    }
-    const float log_s = logf(s);
-    const float inv = 1.f / s;
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const float y = Ys[r * K + k];
-      if (WITH_VALUE) ll = fmaf(y, z[k] - log_s, ll);
-      Rs[r * GK + c * K + k] = valid * (y - expf(z[k]) * inv);
-    }
-  }
-  if (WITH_VALUE) red[g * kChains + c] = ll;
   __syncthreads();
+}
 
-  if (WITH_VALUE && tid < kChains) {
-    float s = 0.f;
-    for (int q = 0; q < kGroups; ++q) s += red[q * kChains + tid];
-    const int ch = blockIdx.y * kChains + tid;
-    if (ch < C) ll_part[(size_t)tile * C + ch] = s;
+// Producer: for iteration it, waits for the stage to be free, then
+// load(it, stage address, barrier) announces the stage's bytes on the barrier
+// and starts its TMA loads (A at the stage address, B_j after it).
+template <class R, class Load>
+__device__ __forceinline__ void produce(uint8_t* ring, uint64_t* full, uint64_t* empty,
+                                        int n_iter, Load load) {
+  for (int it = 0; it < n_iter; ++it) {
+    const int s = it % R::stages;
+    const uint32_t round = it / R::stages;
+    mbar_wait(smem_u32(&empty[s]), (round & 1) ^ 1);
+    load(it, smem_u32(ring + s * R::stage_bytes), smem_u32(&full[s]));
   }
-  for (int j = tid; j < GK; j += kThreads) {
-    float s = 0.f;
-    for (int r = 0; r < kTileRows; ++r) s += Rs[r * GK + j];
-    if (col0 + j < CK) gb_part[(size_t)tile * CK + col0 + j] = s;
-  }
+}
 
-  // ---- step 3: gW partial = X_tile^T R -----------------------------------
-  for (int dc = 0; dc < D; dc += kDChunk) {
-    float acc2[kDPerThread][K];
+// Consumers: acc (64 rows of this warpgroup x BN) = sum over the stages of
+// A_stage[64 wg .. 64 wg + 63] * (B_0 + ... + B_{n-1})^T, where a stage
+// holds n = n_prod(it) products.
+//
+// The tensor cores add into their f32 accumulators with truncation, so a
+// long chain of wgmma into one accumulator drifts toward zero by about half
+// an ulp of the running sum per step (measured at the bench shape: 0.14 nat
+// of value error over the 39 products of the value variant's logits).  With
+// PROMOTE each product goes into a fresh accumulator, which is added into acc
+// by ordinary round-to-nearest f32 adds: the truncation then acts only on one
+// product's partial sum.  It costs BN/2 registers and a wait per product (the
+// other warpgroup's wgmma fill it), so only the value variant's forward takes
+// it; the gradients are well inside their bound without it.
+template <class R, bool PROMOTE, class NProd>
+__device__ __forceinline__ void consume(uint8_t* ring, uint64_t* full, uint64_t* empty,
+                                        int n_iter, NProd n_prod, float (&acc)[R::BN / 2]) {
+  constexpr int BN = R::BN;
+  const uint32_t wg_a = (threadIdx.x / 128) * (64 * kBK * 2);
+  const bool warp_leader = threadIdx.x % 32 == 0;
 #pragma unroll
-    for (int i = 0; i < kDPerThread; ++i)
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  if constexpr (PROMOTE) {
+    float part[BN / 2];
 #pragma unroll
-      for (int k = 0; k < K; ++k) acc2[i][k] = 0.f;
-
-    for (int r0 = 0; r0 < kTileRows; r0 += kRowStep) {
-      __syncthreads();   // previous users of the union / Xb are done
-      for (int i = tid; i < kRowStep * kDChunk; i += kThreads) {
-        const int rr = i / kDChunk, j = i - rr * kDChunk;
-        const int gr = row0 + r0 + rr, gd = dc + j;
-        Xb[i] = (gr < N && gd < D) ? X[(size_t)gr * D + gd] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int rr = 0; rr < kRowStep; ++rr) {
-        const float4 xa = *reinterpret_cast<const float4*>(&Xb[rr * kDChunk + g * kDPerThread]);
-        const float4 xc = *reinterpret_cast<const float4*>(&Xb[rr * kDChunk + g * kDPerThread + 4]);
-        const float xr[kDPerThread] = {xa.x, xa.y, xa.z, xa.w, xc.x, xc.y, xc.z, xc.w};
-        float rv[K];
+    for (int i = 0; i < BN / 2; ++i) part[i] = 0.f;
+    for (int it = 0; it < n_iter; ++it) {
+      const int s = it % R::stages;
+      mbar_wait(smem_u32(&full[s]), (it / R::stages) & 1);
+      const uint32_t stage = smem_u32(ring + s * R::stage_bytes);
+      const uint64_t da = sw128_desc(stage + wg_a);
+      const int n = n_prod(it);
 #pragma unroll
-        for (int k = 0; k < K; ++k) rv[k] = Rs[(r0 + rr) * GK + c * K + k];
+      for (int j = 0; j < R::NB; ++j) {
+        if (j < n) {
+          const uint64_t db = sw128_desc(stage + R::a_bytes + j * R::b_bytes);
+          fence_operands(part);
+          asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 #pragma unroll
-        for (int i = 0; i < kDPerThread; ++i)
+          for (int kk = 0; kk < kBK / 16; ++kk)   // the first overwrites part
+            Wgmma<BN>::mma(part, da + 2 * kk, db + 2 * kk, kk > 0);
+          asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+          asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+          fence_operands(part);
 #pragma unroll
-          for (int k = 0; k < K; ++k) acc2[i][k] = fmaf(xr[i], rv[k], acc2[i][k]);
-      }
-    }
-
-    if (chain < C) {
-#pragma unroll
-      for (int i = 0; i < kDPerThread; ++i) {
-        const int d = dc + g * kDPerThread + i;
-        if (d < D) {
-          float* out = gw_part + ((size_t)tile * D + d) * CK + col0 + c * K;
-#pragma unroll
-          for (int k = 0; k < K; ++k) out[k] = acc2[i][k];
+          for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];
         }
       }
+      if (warp_leader) mbar_arrive(smem_u32(&empty[s]));
+    }
+  } else {
+    for (int it = 0; it < n_iter; ++it) {
+      const int s = it % R::stages;
+      mbar_wait(smem_u32(&full[s]), (it / R::stages) & 1);
+      const uint32_t stage = smem_u32(ring + s * R::stage_bytes);
+      const uint64_t da = sw128_desc(stage + wg_a);
+      const int n = n_prod(it);
+      fence_operands(acc);
+      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+      for (int j = 0; j < R::NB; ++j) {
+        if (j < n) {
+          const uint64_t db = sw128_desc(stage + R::a_bytes + j * R::b_bytes);
+#pragma unroll
+          for (int kk = 0; kk < kBK / 16; ++kk)   // 16 bf16 = 32 bytes = 2 descriptor units
+            Wgmma<BN>::mma(acc, da + 2 * kk, db + 2 * kk, 1);
+        }
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+      fence_operands(acc);
+      // the previous stage's wgmma are done: hand its buffers back
+      if (it > 0 && warp_leader) mbar_arrive(smem_u32(&empty[(it - 1) % R::stages]));
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+    fence_operands(acc);
+  }
+}
+
+// Row and column (within the block's 128 x BN tile) of acc[4 j + e] for
+// consumer thread t: see wgmma.cuh.
+__device__ __forceinline__ int acc_row(int t, int e) {
+  return 64 * (t / 128) + 16 * ((t % 128) / 32) + (t % 32) / 4 + 8 * (e / 2);
+}
+__device__ __forceinline__ int acc_col(int t, int j, int e) { return 8 * j + 2 * (t % 4) + e % 2; }
+
+// ---- 1. forward + softmax epilogue -----------------------------------------
+// Chains per block: 16, or 8 for the value variant from K = 10 on, whose
+// promoted accumulators would not fit in the registers at 16 x K columns.
+template <int K, bool VALUE>
+__host__ __device__ constexpr int chain_group() { return VALUE && K >= 10 ? 8 : 16; }
+
+template <int K, bool VALUE>
+__global__ void __launch_bounds__(kThreads, 1)
+glm_forward_kernel(const __grid_constant__ CUtensorMap tm_x,    // X_hi (N, D)
+                   const __grid_constant__ CUtensorMap tm_xlo,  // X_lo (N, D), or tm_x
+                   const __grid_constant__ CUtensorMap tm_w,    // W pieces (NB, C*K, D)
+                   const float* __restrict__ Y,                 // (N, K)
+                   const float* __restrict__ b2,                // (C*K,)
+                   __nv_bfloat16* __restrict__ rt,              // (2, C*K, ldr)
+                   float* __restrict__ ll_part,                 // (n_tiles, C) or null
+                   int N, int D, int C, int ldr, int has_xlo) {
+  constexpr int G = chain_group<K, VALUE>();
+  constexpr int BN = G * K;
+  using R = Ring<BN, VALUE ? 3 : 2>;   // the W pieces
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + R::bar_offset);
+  uint64_t* empty = full + R::stages;
+  float* red = reinterpret_cast<float*>(ring + R::red_offset);
+  float* ys = reinterpret_cast<float*>(ring + R::ys_offset);
+  float* bs = reinterpret_cast<float*>(ring + R::bs_offset);
+
+  const int n_groups = (C + G - 1) / G;
+  const int tile = blockIdx.x / n_groups;
+  const int grp = blockIdx.x % n_groups;
+  const int m0 = tile * kBM;
+  const int CK = C * K;
+  // stages per D step: X_hi with every W piece, then (off the grid) X_lo
+  // with W_0
+  const int per_step = 1 + has_xlo;
+  const int n_iter = ((D + kBK - 1) / kBK) * per_step;
+  auto n_prod = [&](int it) { return it % per_step == 0 ? R::NB : 1; };
+
+  init_barriers<R>(full, empty);
+
+  if (threadIdx.x >= kConsumerThreads) {
+    if (threadIdx.x == kConsumerThreads) {
+      produce<R>(ring, full, empty, n_iter, [&](int it, uint32_t stage, uint32_t bar) {
+        const int kd = (it / per_step) * kBK;
+        const int n = n_prod(it);
+        mbar_expect_tx(bar, R::a_bytes + n * R::b_bytes);
+        tma_load_2d(stage, n == R::NB ? &tm_x : &tm_xlo, bar, kd, m0);
+        for (int j = 0; j < n; ++j)
+          tma_load_3d(stage + R::a_bytes + j * R::b_bytes, &tm_w, bar, kd, grp * BN, j);
+      });
+    }
+    return;
+  }
+
+  // the epilogue's labels and bias, loaded while the first stages land
+  const int t = threadIdx.x;
+  {
+    const int rows_k = min(kBM, N - m0) * K;
+    const float* y = Y + static_cast<size_t>(m0) * K;
+    for (int i = t; i < kBM * K; i += kConsumerThreads) ys[i] = i < rows_k ? y[i] : 0.f;
+    if (t < BN) bs[t] = grp * BN + t < CK ? b2[grp * BN + t] : 0.f;
+  }
+
+  float acc[BN / 2];
+  consume<R, VALUE>(ring, full, empty, n_iter, n_prod, acc);
+  consumer_sync();   // both warpgroups are done with the ring: it now holds Z
+
+  float* zs = reinterpret_cast<float*>(ring);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) zs[acc_row(t, e) * R::zpitch + acc_col(t, j, e)] = acc[4 * j + e];
+  consumer_sync();
+
+  // per-(row, chain) stable softmax: thread t owns chain t % G of rows
+  // t / G + (256 / G) i; R replaces Z in place
+  constexpr int kRowStride = kConsumerThreads / G;
+  const int c = t % G;
+  const int chain = grp * G + c;
+  float ll = 0.f;
+  if (chain < C) {
+    float bias[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) bias[k] = bs[c * K + k];
+#pragma unroll 2
+    for (int i = 0; i < kBM / kRowStride; ++i) {
+      const int r = t / G + kRowStride * i;
+      float* z = zs + r * R::zpitch + c * K;
+      const float* y = ys + r * K;   // zero past the last row
+      float e[K];
+      float m = -INFINITY;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        e[k] = z[k] + bias[k];
+        m = fmaxf(m, e[k]);
+      }
+      float s = 0.f;
+      if constexpr (VALUE) {
+        // ll_row = sum_k y_k (z_k - m) - (sum_k y_k) log sum_k exp(z_k - m)
+        float yz = 0.f, ysum = 0.f;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const float zm = e[k] - m;
+          yz = fmaf(y[k], zm, yz);
+          ysum += y[k];
+          e[k] = expf(zm);
+          s += e[k];
+        }
+        ll += yz - ysum * logf(s);
+      } else {
+        // no value: the fast exp (relative error ~2^-21) is far inside the
+        // 2^-17 of R's bf16 pieces
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          e[k] = __expf(e[k] - m);
+          s += e[k];
+        }
+      }
+      const float inv = m0 + r < N ? 1.f / s : 0.f;   // a padded row has no residual
+#pragma unroll
+      for (int k = 0; k < K; ++k) z[k] = y[k] - e[k] * inv;
+    }
+  }
+  red[t] = ll;
+  consumer_sync();
+  if (ll_part != nullptr && t < G && grp * G + t < C) {
+    float s = 0.f;
+    for (int q = 0; q < kRowStride; ++q) s += red[q * G + t];
+    ll_part[static_cast<size_t>(tile) * C + grp * G + t] = s;
+  }
+
+  // R^T pieces: warp w writes columns w, w + 8, ...; lane l rows 2l, 2l + 1
+  // (+64), as bf16 pairs, hi = bf16(R) and lo = bf16(R - hi)
+  __nv_bfloat16* rt_lo = rt + static_cast<size_t>(CK) * ldr;
+  const int warp = t / 32, lane = t % 32;
+  for (int j = warp; j < BN; j += kConsumerThreads / 32) {
+    const int col = grp * BN + j;
+    if (col >= CK) break;
+#pragma unroll
+    for (int e = 0; e < kBM / 64; ++e) {
+      const int r = 2 * lane + 64 * e;
+      const int gr = m0 + r;
+      if (gr < N) {   // gr + 1 < ldr: ldr is N rounded up to a multiple of 8
+        const float v0 = zs[r * R::zpitch + j];
+        const float v1 = zs[(r + 1) * R::zpitch + j];
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(v0, v1);
+        const float2 hf = __bfloat1622float2(hi);
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(v0 - hf.x, v1 - hf.y);
+        const size_t off = static_cast<size_t>(col) * ldr + gr;
+        *reinterpret_cast<__nv_bfloat162*>(rt + off) = hi;
+        *reinterpret_cast<__nv_bfloat162*>(rt_lo + off) = lo;
+      }
     }
   }
 }
 
-// out[i] = sum_t in[t * len + i], summed in order t = 0, 1, ... in double:
-// the value is a sum of ~N/128 tile partials of a total ~1e5 nat, where f32
-// accumulation would drift by ~0.1 nat.  The pass is memory-bound, so the
-// double adds cost nothing.
-__global__ void sum_slices_kernel(const float* __restrict__ in, float* __restrict__ out,
-                                  int n_slices, long long len) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= len) return;
-  double s = 0.0;
-  for (int t = 0; t < n_slices; ++t) s += (double)in[(size_t)t * len + i];
-  out[i] = (float)s;
+// ---- 2. backward GEMM: gW_aug = X_aug^T R, one N slice per block ----------
+using BwdRing = Ring<kBwdBN, 2>;   // the R pieces
+
+__global__ void __launch_bounds__(kThreads, 1)
+glm_backward_kernel(const __grid_constant__ CUtensorMap tm_xt,    // X_hi^T (D+1, N)
+                    const __grid_constant__ CUtensorMap tm_xtlo,  // X_lo^T (D+1, N), or tm_xt
+                    const __grid_constant__ CUtensorMap tm_rt,    // R^T pieces (2, C*K, N)
+                    float* __restrict__ part,                     // (S, D+1, C*K)
+                    int N, int Daug, int CK, int has_xlo, int n_ctiles, int n_dtiles,
+                    int k_per_slice) {
+  constexpr int BN = kBwdBN;
+  using R = BwdRing;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + R::bar_offset);
+  uint64_t* empty = full + R::stages;
+
+  const int ct = blockIdx.x % n_ctiles;
+  const int dt = (blockIdx.x / n_ctiles) % n_dtiles;
+  const int slice = blockIdx.x / (n_ctiles * n_dtiles);
+  const int nk = (N + kBK - 1) / kBK;
+  const int k0 = slice * k_per_slice;
+  const int k1 = min(nk, k0 + k_per_slice);
+  // stages per N step: X_hi^T with R_hi and R_lo, then (off the grid) X_lo^T
+  // with R_hi
+  const int per_step = 1 + has_xlo;
+  const int n_iter = k1 > k0 ? (k1 - k0) * per_step : 0;
+  auto n_prod = [&](int it) { return it % per_step == 0 ? R::NB : 1; };
+
+  init_barriers<R>(full, empty);
+
+  if (threadIdx.x >= kConsumerThreads) {
+    if (threadIdx.x == kConsumerThreads) {
+      produce<R>(ring, full, empty, n_iter, [&](int it, uint32_t stage, uint32_t bar) {
+        const int kn = (k0 + it / per_step) * kBK;
+        const int n = n_prod(it);
+        mbar_expect_tx(bar, R::a_bytes + n * R::b_bytes);
+        tma_load_2d(stage, n == R::NB ? &tm_xt : &tm_xtlo, bar, kn, dt * kBM);
+        for (int j = 0; j < n; ++j)
+          tma_load_3d(stage + R::a_bytes + j * R::b_bytes, &tm_rt, bar, kn, ct * BN, j);
+      });
+    }
+    return;
+  }
+
+  float acc[BN / 2];
+  consume<R, false>(ring, full, empty, n_iter, n_prod, acc);
+
+  const int t = threadIdx.x;
+  float* out = part + static_cast<size_t>(slice) * Daug * CK;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int d = dt * kBM + acc_row(t, e);
+      const int col = ct * BN + acc_col(t, j, e);
+      if (d < Daug && col < CK) out[static_cast<size_t>(d) * CK + col] = acc[4 * j + e];
+    }
 }
 
-cudaError_t sum_slices(const float* in, float* out, int n_slices, long long len,
-                       cudaStream_t stream) {
-  const int threads = 256;
-  const long long blocks = (len + threads - 1) / threads;
-  sum_slices_kernel<<<(unsigned)blocks, threads, 0, stream>>>(in, out, n_slices, len);
-  return cudaGetLastError();
+// ---- 3. fixed-order sums ---------------------------------------------------
+// gw (C, D, K) and gb (C*K) from the S partials; ll (C) from the per-tile
+// partials.  In double: the value is a sum of N/128 tile partials of a total
+// ~1e5 nat, where f32 accumulation would drift by ~0.1 nat.
+__global__ void glm_finish_kernel(const float* __restrict__ part, int n_slices, int D, int K,
+                                  int C, const float* __restrict__ ll_part, int n_tiles,
+                                  float* __restrict__ gw, float* __restrict__ gb,
+                                  float* __restrict__ ll) {
+  const long long CK = static_cast<long long>(C) * K;
+  const long long n_gw = static_cast<long long>(D) * CK;
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i < n_gw + CK) {
+    const long long d = i / CK, col = i - d * CK;   // d == D: the bias row
+    double s = 0.0;
+    for (int q = 0; q < n_slices; ++q) s += static_cast<double>(part[(q * (D + 1LL) + d) * CK + col]);
+    if (d < D) {
+      const long long c = col / K, k = col - c * K;
+      gw[(c * D + d) * K + k] = static_cast<float>(s);
+    } else {
+      gb[col] = static_cast<float>(s);
+    }
+  } else if (ll != nullptr && i < n_gw + CK + C) {
+    const long long c = i - n_gw - CK;
+    double s = 0.0;
+    for (int q = 0; q < n_tiles; ++q) s += static_cast<double>(ll_part[q * static_cast<long long>(C) + c]);
+    ll[c] = static_cast<float>(s);
+  }
 }
 
-template <int K, bool WITH_VALUE>
-cudaError_t launch_tiles(const float* X, const float* Y, const float* W2, const float* b2,
-                         float* ll_part, float* gw_part, float* gb_part,
-                         int N, int D, int C, int n_tiles, cudaStream_t stream) {
-  using L = Layout<K>;
-  auto kernel = softmax_glm_tile_kernel<K, WITH_VALUE>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)L::bytes);
+// ---- host side ---------------------------------------------------------------
+// Errors of our own, beside the CUDA runtime's (which are >= 0).
+constexpr int kErrNoEncoder = -1;     // cuTensorMapEncodeTiled not found in libcuda
+constexpr int kErrTensorMap = -2;     // libcuda refused a tensor map
+constexpr int kErrClasses = -3;       // K outside [2, 16]
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's tensor-map encoder, from the libcuda the process already has
+// loaded (no link-time dependency on libcuda).
+EncodeTiledFn encode_fn() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    if (lib != nullptr) fn = reinterpret_cast<EncodeTiledFn>(dlsym(lib, "cuTensorMapEncodeTiled"));
+  }
+  return fn;
+}
+
+// A bf16 tensor of `rank` dims (dims[0] contiguous; strides in bytes of dims
+// 1..rank-1), read in boxes of 64 x rows (x 1), 128-byte swizzled, with
+// reads outside the tensor filled with zeros.
+int make_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+             const cuuint64_t* strides, uint32_t box_rows) {
+  EncodeTiledFn fn = encode_fn();
+  if (fn == nullptr) return kErrNoEncoder;
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(kBK), box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
+                          dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : kErrTensorMap;
+}
+
+// The W map's boxes are one chain group wide, so it is made here.
+template <int K, bool VALUE>
+int launch_forward(const CUtensorMap& mx, const CUtensorMap& mxlo, const void* w, int ldx,
+                   int n_w, const float* Y, const float* b2, __nv_bfloat16* rt, float* ll_part,
+                   int N, int D, int C, int ldr, int has_xlo, cudaStream_t stream) {
+  constexpr int G = chain_group<K, VALUE>();
+  using R = Ring<G * K, VALUE ? 3 : 2>;
+  if (n_w != R::NB) return cudaErrorInvalidValue;
+  CUtensorMap mw;
+  const cuuint64_t CK = static_cast<cuuint64_t>(C) * K;
+  const cuuint64_t wdims[3] = {static_cast<cuuint64_t>(D), CK, static_cast<cuuint64_t>(n_w)};
+  const cuuint64_t wstrides[2] = {static_cast<cuuint64_t>(ldx) * 2, CK * ldx * 2};
+  const int merr = make_map(&mw, w, 3, wdims, wstrides, G * K);
+  if (merr != 0) return merr;
+  auto kernel = glm_forward_kernel<K, VALUE>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, R::smem_bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid(n_tiles, (C + kChains - 1) / kChains);
-  kernel<<<grid, kThreads, L::bytes, stream>>>(X, Y, W2, b2, ll_part, gw_part, gb_part, N, D, C);
+  const int grid = ((N + kBM - 1) / kBM) * ((C + G - 1) / G);
+  kernel<<<grid, kThreads, R::smem_bytes, stream>>>(mx, mxlo, mw, Y, b2, rt, ll_part, N, D, C,
+                                                     ldr, has_xlo);
   return cudaGetLastError();
 }
 
@@ -275,36 +608,109 @@ cudaError_t launch_tiles(const float* X, const float* Y, const float* W2, const 
 
 extern "C" {
 
-// Rows of X per block: the wrapper sizes the scratch slices with it.
-int dhmc_softmax_glm_tile_rows() { return kTileRows; }
-
 const char* dhmc_cuda_error_string(int err) {
-  return cudaGetErrorString((cudaError_t)err);
+  switch (err) {
+    case kErrNoEncoder: return "cuTensorMapEncodeTiled not found in libcuda.so.1";
+    case kErrTensorMap: return "cuTensorMapEncodeTiled refused a tensor map";
+    case kErrClasses: return "the kernel takes 2 to 16 classes";
+    default: return cudaGetErrorString(static_cast<cudaError_t>(err));
+  }
 }
 
-// Likelihood value (optional) and gradient for all chains.  Returns a
-// cudaError_t (0 on success).  ll_part/ll_out may be null when with_value == 0.
-int dhmc_softmax_glm(const float* X, const float* Y, const float* W2, const float* b2,
-                     float* ll_part, float* gw_part, float* gb_part,
-                     float* ll_out, float* gw_out, float* gb_out,
-                     int N, int D, int K, int C, int with_value, int device,
-                     void* stream_ptr) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (K != 10 || N <= 0 || D <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
+// Stage 1.  x, xlo (N rows, leading dimension ldx; xlo may be null), w
+// (n_w, C*K, ldx) bf16; Y (N, K), b2 (C*K) f32; writes rt (2, C*K, ldr) bf16.
+// The value variant (ll_part not null, n_w = 3) also writes ll_part
+// (ceil(N/128), C).  Returns a cudaError_t, or one of the negative codes above.
+int dhmc_glm_forward(const void* x, const void* xlo, int ldx, const void* w, int n_w,
+                     const float* Y, const float* b2, void* rt, int ldr, float* ll_part, int N,
+                     int D, int K, int C, int device, void* stream_ptr) {
+  cudaError_t cerr = cudaSetDevice(device);
+  if (cerr != cudaSuccess) return cerr;
+  if (K < 2 || K > 16) return kErrClasses;
+  CUtensorMap mx, mxlo;
+  const cuuint64_t xdims[2] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(N)};
+  const cuuint64_t xstrides[1] = {static_cast<cuuint64_t>(ldx) * 2};
+  int err = make_map(&mx, x, 2, xdims, xstrides, kBM);
+  if (err == 0 && xlo != nullptr) err = make_map(&mxlo, xlo, 2, xdims, xstrides, kBM);
+  if (err != 0) return err;
+  const int has_xlo = xlo != nullptr;
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
-  const int n_tiles = (N + kTileRows - 1) / kTileRows;
-  err = with_value
-      ? launch_tiles<10, true>(X, Y, W2, b2, ll_part, gw_part, gb_part, N, D, C, n_tiles, stream)
-      : launch_tiles<10, false>(X, Y, W2, b2, ll_part, gw_part, gb_part, N, D, C, n_tiles, stream);
-  if (err != cudaSuccess) return (int)err;
-  const long long CK = (long long)C * K;
-  err = sum_slices(gw_part, gw_out, n_tiles, (long long)D * CK, stream);
-  if (err != cudaSuccess) return (int)err;
-  err = sum_slices(gb_part, gb_out, n_tiles, CK, stream);
-  if (err != cudaSuccess) return (int)err;
-  if (with_value) err = sum_slices(ll_part, ll_out, n_tiles, C, stream);
-  return (int)err;
+  __nv_bfloat16* r = static_cast<__nv_bfloat16*>(rt);
+#define DHMC_FORWARD_CASE(KK)                                                                \
+  case KK:                                                                                   \
+    return ll_part != nullptr                                                                \
+               ? launch_forward<KK, true>(mx, has_xlo ? mxlo : mx, w, ldx, n_w, Y, b2, r,    \
+                                          ll_part, N, D, C, ldr, has_xlo, stream)            \
+               : launch_forward<KK, false>(mx, has_xlo ? mxlo : mx, w, ldx, n_w, Y, b2, r,   \
+                                           ll_part, N, D, C, ldr, has_xlo, stream);
+  switch (K) {
+    DHMC_FORWARD_CASE(2) DHMC_FORWARD_CASE(3) DHMC_FORWARD_CASE(4) DHMC_FORWARD_CASE(5)
+    DHMC_FORWARD_CASE(6) DHMC_FORWARD_CASE(7) DHMC_FORWARD_CASE(8) DHMC_FORWARD_CASE(9)
+    DHMC_FORWARD_CASE(10) DHMC_FORWARD_CASE(11) DHMC_FORWARD_CASE(12) DHMC_FORWARD_CASE(13)
+    DHMC_FORWARD_CASE(14) DHMC_FORWARD_CASE(15) DHMC_FORWARD_CASE(16)
+  }
+#undef DHMC_FORWARD_CASE
+  return kErrClasses;
+}
+
+// Stage 2.  xt, xtlo (D+1 rows, leading dimension ldr; xtlo may be null),
+// rt (2, CK, ldr) bf16; writes part (n_slices, D+1, CK) f32.
+int dhmc_glm_backward(const void* xt, const void* xtlo, const void* rt, int ldr, float* part,
+                      int n_slices, int N, int D, int CK, int device, void* stream_ptr) {
+  cudaError_t cerr = cudaSetDevice(device);
+  if (cerr != cudaSuccess) return cerr;
+  const int Daug = D + 1;
+  CUtensorMap mxt, mxtlo, mrt;
+  const cuuint64_t xdims[2] = {static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(Daug)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(ldr) * 2,
+                                 static_cast<cuuint64_t>(CK) * ldr * 2};
+  int err = make_map(&mxt, xt, 2, xdims, strides, kBM);
+  if (err == 0 && xtlo != nullptr) err = make_map(&mxtlo, xtlo, 2, xdims, strides, kBM);
+  const cuuint64_t rdims[3] = {static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(CK), 2};
+  if (err == 0) err = make_map(&mrt, rt, 3, rdims, strides, kBwdBN);
+  if (err != 0) return err;
+  using R = BwdRing;
+  cerr = cudaFuncSetAttribute(glm_backward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              R::smem_bytes);
+  if (cerr != cudaSuccess) return cerr;
+  const int n_ctiles = (CK + kBwdBN - 1) / kBwdBN;
+  const int n_dtiles = (Daug + kBM - 1) / kBM;
+  const int nk = (N + kBK - 1) / kBK;
+  const int k_per_slice = (nk + n_slices - 1) / n_slices;
+  const int has_xlo = xtlo != nullptr;
+  glm_backward_kernel<<<n_ctiles * n_dtiles * n_slices, kThreads, R::smem_bytes,
+                        reinterpret_cast<cudaStream_t>(stream_ptr)>>>(
+      mxt, has_xlo ? mxtlo : mxt, mrt, part, N, Daug, CK, has_xlo, n_ctiles, n_dtiles,
+      k_per_slice);
+  return cudaGetLastError();
+}
+
+// Backward blocks that run at once on the device: the SMs times the blocks
+// per SM (the wrapper sizes the N slices with it).  0 on error.
+int dhmc_glm_backward_slots(int device) {
+  int sms = 0, per_sm = 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess) return 0;
+  if (cudaSetDevice(device) != cudaSuccess) return 0;
+  if (cudaFuncSetAttribute(glm_backward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           BwdRing::smem_bytes) != cudaSuccess)
+    return 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, glm_backward_kernel, kThreads,
+                                                    BwdRing::smem_bytes) != cudaSuccess)
+    return 0;
+  return sms * per_sm;
+}
+
+// Stage 3.  gw (C, D, K), gb (C*K), and ll (C) when ll is not null.
+int dhmc_glm_finish(const float* part, int n_slices, int D, int K, int C, const float* ll_part,
+                    int n_tiles, float* gw, float* gb, float* ll, int device, void* stream_ptr) {
+  cudaError_t cerr = cudaSetDevice(device);
+  if (cerr != cudaSuccess) return cerr;
+  const long long total = (static_cast<long long>(D) + 1) * C * K + C;
+  const int threads = 256;
+  glm_finish_kernel<<<static_cast<unsigned>((total + threads - 1) / threads), threads, 0,
+                      reinterpret_cast<cudaStream_t>(stream_ptr)>>>(
+      part, n_slices, D, K, C, ll_part, n_tiles, gw, gb, ll);
+  return cudaGetLastError();
 }
 
 }  // extern "C"

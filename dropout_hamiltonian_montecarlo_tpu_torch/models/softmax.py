@@ -53,21 +53,26 @@ class Softmax(Model):
                 "bias": resid.sum(dim=0) - self.alpha * params["bias"]}
 
     def make_fused_value_and_grad(self, batch, fwd_full: bool = True,
-                                  include_prior: bool = True):
+                                  include_prior: bool = True, x_split=None):
         """Chain-batched log-posterior value+grad through the fused
         softmax-GLM op (the CUDA kernel for CUDA tensors).
 
         ``fwd_full=True``: params -> ((C,) values, grads).  ``fwd_full=False``
         is the grad-only variant, params -> grads, for the inner leapfrog
-        steps.  ``include_prior=False`` gives likelihood-only outputs."""
-        from ..ops.softmax_glm import softmax_value_and_grad
+        steps.  ``include_prior=False`` gives likelihood-only outputs.  The
+        kernel's bf16 pieces of X (``ops.softmax_glm.split_bf16_input``) are
+        cut here, once, for a CUDA X; pass the same ``x_split`` to several
+        makers to share one copy.  The CPU route does not use them."""
+        from ..ops.softmax_glm import softmax_value_and_grad, split_bf16_input
 
         X, y = batch
+        if x_split is None and X.is_cuda:
+            x_split = split_bf16_input(X)
 
         def vag(params: Params):
             value, gw, gb = softmax_value_and_grad(
                 X, y, params["weights"], params["bias"], self.alpha,
-                fwd_full=fwd_full, include_prior=include_prior)
+                fwd_full=fwd_full, include_prior=include_prior, x_split=x_split)
             grads = {"weights": gw, "bias": gb}
             return (value, grads) if fwd_full else grads
 

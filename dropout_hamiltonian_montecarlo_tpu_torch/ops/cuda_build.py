@@ -3,8 +3,9 @@
 The sources under ``csrc/`` are compiled with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, loaded with :mod:`ctypes`.  The
 build happens at first use, into ``build/kernels/`` beside the package (a
-directory git ignores), and the library name carries a hash of the source, so
-an edited source rebuilds.  Nothing here runs at import time.
+directory git ignores), and the library name carries a hash of every file
+under ``csrc/`` and of the compiler flags, so an edited source or header
+rebuilds.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -23,6 +24,10 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+# headers are included by relative path from csrc/, so no -I is needed
+BUILD_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+               "-Xptxas", "-v"]
+LINK_FLAGS = ["-ldl"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # name -> {"seconds": build time (0.0 when the library was already built),
@@ -47,22 +52,34 @@ def find_nvcc() -> str:
                        "(set CUDA_HOME or put nvcc on PATH)")
 
 
+def build_digest(name: str, csrc_dir: Path = CSRC_DIR) -> str:
+    """Hash of what the build of ``csrc/<name>.cu`` reads: the name, every
+    file under ``csrc_dir`` (path and bytes, in sorted order) and the flags."""
+    h = hashlib.sha256(name.encode())
+    for f in sorted(p for p in csrc_dir.rglob("*") if p.is_file()):
+        h.update(str(f.relative_to(csrc_dir)).encode() + b"\0" + f.read_bytes() + b"\0")
+    h.update(" ".join(BUILD_FLAGS + LINK_FLAGS).encode())
+    return h.hexdigest()[:12]
+
+
+def library_path(name: str, csrc_dir: Path = CSRC_DIR) -> Path:
+    """Where the build of ``csrc/<name>.cu`` goes: named by its digest."""
+    return BUILD_DIR / f"lib{name}_{build_digest(name, csrc_dir)}.so"
+
+
 def load_library(name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` (once per source hash) and load it."""
+    """Compile ``csrc/<name>.cu`` (once per build digest) and load it."""
     if name in _LIBS:
         return _LIBS[name]
     src = CSRC_DIR / f"{name}.cu"
-    source = src.read_bytes()
-    digest = hashlib.sha256(source + " ".join(ARCH_FLAGS).encode()).hexdigest()[:12]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib_path = BUILD_DIR / f"lib{name}_{digest}.so"
+    lib_path = library_path(name)
     info = {"seconds": 0.0, "ptxas": "", "path": str(lib_path)}
     if not lib_path.exists():
         nvcc = find_nvcc()
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, str(src)]
+        cmd = [nvcc, *BUILD_FLAGS, "-o", tmp, str(src), *LINK_FLAGS]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         info["seconds"] = time.perf_counter() - t0

@@ -26,6 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .softmax_glm import split_bf16_input
 from .tree import Params, tree_add
 
 
@@ -285,9 +286,12 @@ def make_whitened_fused_vag(model, metric: KronMetric, qmap: Params, batch):
 
     Returns (batched_vag, batched_grad): ``batched_vag`` gives ((C,) values,
     whitened grads) with the accurate value; ``batched_grad`` is the
-    grad-only variant for the inner leapfrog steps (no value)."""
-    fused_q = model.make_fused_value_and_grad(batch)
-    fused_g = model.make_fused_value_and_grad(batch, fwd_full=False)
+    grad-only variant for the inner leapfrog steps (no value).  Both share
+    one set of the kernel's bf16 pieces of X, cut here once (CUDA only)."""
+    X = batch[0]
+    x_split = split_bf16_input(X) if X.is_cuda else None
+    fused_q = model.make_fused_value_and_grad(batch, x_split=x_split)
+    fused_g = model.make_fused_value_and_grad(batch, fwd_full=False, x_split=x_split)
 
     def to_params(E: Params) -> Params:
         dQ = metric.unwhiten(E)

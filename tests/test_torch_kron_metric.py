@@ -149,6 +149,32 @@ def test_whitened_fused_vag_matches_jax(setup):
     _close_tree(grad_only(params_from_jax(E, "cpu")), ref_g)
 
 
+def test_whitened_fused_vag_shares_one_split(setup):
+    """make_whitened_fused_vag cuts X's bf16 pieces once for both makers (on
+    a CUDA X); its outputs equal the two makers built here with an explicit
+    shared split, which the CPU route ignores."""
+    from dropout_hamiltonian_montecarlo_tpu_torch.ops.softmax_glm import split_bf16_input
+
+    rng = np.random.RandomState(9)
+    E = params_from_jax(_rand_tree(rng, setup["d"], scale=0.5), "cpu")
+    model = Softmax(dim=setup["d"], n_classes=10, alpha=ALPHA)
+    batch = (torch.from_numpy(setup["X"]), torch.from_numpy(setup["Y"]))
+    metric, qmap = setup["tmetric"], setup["tqmap"]
+    vag, grad_only = tkm.make_whitened_fused_vag(model, metric, qmap, batch)
+    split = split_bf16_input(batch[0])
+    fused_q = model.make_fused_value_and_grad(batch, x_split=split)
+    fused_g = model.make_fused_value_and_grad(batch, fwd_full=False, x_split=split)
+    dQ = metric.unwhiten(E)
+    Q = {k: qmap[k][None] + dQ[k] for k in qmap}
+    ref_v, ref_G = fused_q(Q)
+    v, g = vag(E)
+    np.testing.assert_array_equal(v.numpy(), ref_v.numpy())
+    for got, ref in ((g, metric.unwhiten_transpose(ref_G)),
+                     (grad_only(E), metric.unwhiten_transpose(fused_g(Q)))):
+        for k in ("weights", "bias"):
+            np.testing.assert_array_equal(got[k].numpy(), ref[k].numpy())
+
+
 def test_port_setup_loads_in_jax(setup, tmp_path):
     """The port computes its own setup (Gram eigh, Newton MAP, Fisher), writes
     it, reads it back from the cache, and the JAX package builds the same
