@@ -16,12 +16,24 @@ Phases, one line each (any failure exits non-zero):
   4. main path: the port bench (synthetic MNIST 60000 x 784, full metric
      setup, 128 chains, L=10, target 0.5) cut to 50 warmup steps and 100
      draws; its JSON line, checks on its outputs, and the kernel launch
-     counts of that run against the calls the path makes.
-Then one JSON line describing each kernel, and last:
+     counts of that run against the calls the path makes;
+  5. NUTS path: the same bench with BENCH_SAMPLER=nuts at depth cap 4 (128
+     chains), cut to 50 warmup steps and 50 draws; checks on its outputs, and
+     value+grad launches = the 2 inits + the lockstep leaves the kernel ran;
+  6. CLI: ``mnist-nuts`` on the synthetic MNIST, 128 chains, 50 warmup, 50
+     draws, depth cap 4; its JSON line and checks (R-hat finite, train and
+     predictive accuracy above 0.85);
+  7. ChEES: the HMC bench with ChEES warmup, 50 warmup steps and 50 draws;
+     checks (finite step, 1 <= L <= 64, finite ESS) and exact launch counts.
+Phases 4-7 each count the kernel's launches from zero just before the run
+and read them just after.  Then one JSON line describing each kernel (its
+launches summed over phases 4-7), and last:
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 Without a CUDA device it exits non-zero before printing any result.
 """
 
+import contextlib
+import io
 import json
 import math
 import subprocess
@@ -29,6 +41,7 @@ import sys
 from pathlib import Path
 
 WARMUP, DRAWS, CHAINS, L = 50, 100, 128, 10
+NUTS_WARMUP, NUTS_DRAWS, NUTS_DEPTH = 50, 50, 4
 SOURCE = "dropout_hamiltonian_montecarlo_tpu_torch/csrc/softmax_glm.cu"
 REPLACES = "dropout_hamiltonian_montecarlo_tpu/ops/pallas_glm.py:98"
 # tolerances: the value feeds the MH accept, whose energy delta is O(1), so
@@ -104,12 +117,18 @@ def compare(torch, sg, X, Y, W, b, alpha, x_split):
     return errs
 
 
+def check_finite(det: dict, keys) -> None:
+    for key in keys:
+        if not math.isfinite(det[key]):
+            fail(f"{key} is not finite: {det[key]}")
+
+
 def main() -> None:
     import torch
 
     if not torch.cuda.is_available():
         fail("no CUDA device")
-    from dropout_hamiltonian_montecarlo_tpu_torch import bench, full_f32_precision
+    from dropout_hamiltonian_montecarlo_tpu_torch import bench, cli, full_f32_precision
     from dropout_hamiltonian_montecarlo_tpu_torch.ops import softmax_glm as sg
     from dropout_hamiltonian_montecarlo_tpu_torch.ops.cuda_build import BUILD_INFO, find_nvcc
     from dropout_hamiltonian_montecarlo_tpu_torch.utils.profiling import cuda_time_ms
@@ -181,9 +200,7 @@ def main() -> None:
     counts = dict(sg.launch_counts)
     print("phase 4 main path: " + json.dumps(result), flush=True)
     det = result["detail"]
-    for key in ("ess_median", "ess_min", "acceptance", "sample_seconds"):
-        if not math.isfinite(det[key]):
-            fail(f"{key} is not finite: {det[key]}")
+    check_finite(det, ("ess_median", "ess_min", "acceptance", "sample_seconds"))
     if not math.isfinite(result["value"]):
         fail(f"ESS/s is not finite: {result['value']}")
     if not 0.2 < det["acceptance"] < 0.95:
@@ -196,14 +213,83 @@ def main() -> None:
     if counts != want:
         fail(f"kernel launches {counts} != the path's calls {want}")
     print(f"phase 4 launch counts: {counts} (expected {want})", flush=True)
+    total = dict(counts)
+
+    def add(c):
+        for key in total:
+            total[key] += c[key]
+
+    # ---- 5. NUTS bench path -----------------------------------------------
+    sg.reset_launch_counts()
+    result = bench.run(device="cuda", chains=CHAINS, warmup=NUTS_WARMUP, draws=NUTS_DRAWS,
+                       target_accept=0.5, dataset="mnist", sampler="nuts",
+                       nuts_depth=NUTS_DEPTH)
+    torch.cuda.synchronize()
+    counts = dict(sg.launch_counts)
+    add(counts)
+    print("phase 5 NUTS path: " + json.dumps(result), flush=True)
+    det = result["detail"]
+    check_finite(det, ("ess_median", "ess_min", "acceptance", "num_integration_steps"))
+    if not math.isfinite(result["value"]):
+        fail(f"NUTS ESS/s is not finite: {result['value']}")
+    if not 0.2 < det["acceptance"] < 0.99:
+        fail(f"NUTS acceptance {det['acceptance']} outside (0.2, 0.99)")
+    if det["divergent_frac"] > 0.01:
+        fail(f"NUTS divergent fraction {det['divergent_frac']}")
+    if det["num_integration_steps"] > 2 ** NUTS_DEPTH - 1:
+        fail(f"NUTS mean leaves per draw {det['num_integration_steps']} > "
+             f"{2 ** NUTS_DEPTH - 1}")
+    want = {"grad": 0, "value_and_grad": 2 + det["lockstep_leaves"]}
+    if counts != want:
+        fail(f"NUTS kernel launches {counts} != 2 inits + the lockstep leaves {want}")
+    print(f"phase 5 launch counts: {counts} (expected {want})", flush=True)
+
+    # ---- 6. CLI -------------------------------------------------------------
+    sg.reset_launch_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(["mnist-nuts", "--chains", str(CHAINS), "--samples", str(NUTS_DRAWS),
+                  "--warmup", str(NUTS_WARMUP), "--max-depth", str(NUTS_DEPTH)])
+    torch.cuda.synchronize()
+    counts = dict(sg.launch_counts)
+    add(counts)
+    line = out.getvalue().strip().splitlines()[-1]
+    print("phase 6 CLI: " + line, flush=True)
+    agg = json.loads(line)
+    check_finite(agg, ("max_rhat", "min_ess", "median_ess"))
+    for key in ("train_accuracy", "predictive_accuracy"):
+        if not agg[key] > 0.85:
+            fail(f"CLI {key} {agg[key]} <= 0.85")
+    if counts["grad"] != 0 or counts["value_and_grad"] < NUTS_WARMUP + NUTS_DRAWS:
+        fail(f"CLI kernel launches {counts}")
+    print(f"phase 6 launch counts: {counts}", flush=True)
+
+    # ---- 7. ChEES -----------------------------------------------------------
+    sg.reset_launch_counts()
+    result = bench.run(device="cuda", chains=CHAINS, warmup=NUTS_WARMUP, draws=NUTS_DRAWS,
+                       target_accept=0.5, dataset="mnist", chees=True)
+    torch.cuda.synchronize()
+    counts = dict(sg.launch_counts)
+    add(counts)
+    print("phase 7 ChEES: " + json.dumps(result), flush=True)
+    det = result["detail"]
+    check_finite(det, ("ess_median", "ess_min", "step_size_median"))
+    steps = int(det["num_integration_steps"])
+    if not 1 <= steps <= 64 or det["warmup"] != "chees":
+        fail(f"ChEES L = {steps} outside [1, 64] (warmup {det['warmup']})")
+    want = {"grad": NUTS_DRAWS * (steps - 1),
+            "value_and_grad": 2 + det["chees_leapfrog_steps"] + NUTS_DRAWS}
+    if counts != want:
+        fail(f"ChEES kernel launches {counts} != the path's calls {want}")
+    print(f"phase 7 launch counts: {counts} (expected {want})", flush=True)
 
     kernels = [
         {"name": "softmax_glm_value_and_grad", "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES, "launches": counts["value_and_grad"],
+         "replaces": REPLACES, "launches": total["value_and_grad"],
          "max_abs_err": max(big["value"], big["gw"], big["gb"]),
          "ms": ms_full, "plain_ms": ms_plain},
         {"name": "softmax_glm_grad", "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES, "launches": counts["grad"],
+         "replaces": REPLACES, "launches": total["grad"],
          "max_abs_err": max(big["gw_gradonly"], big["gb_gradonly"]),
          "ms": ms_grad, "plain_ms": ms_plain},
     ]

@@ -8,11 +8,21 @@ Pipeline (the JAX package's bench.py, same settings):
      scikit-learn's real 8x8 digits);
   2. exact Kronecker Gauss-Newton metric, Newton MAP, class Fisher at the MAP
      (ops.kron_metric.cached_gn_setup);
-  3. HMC in whitened coordinates e = M^{1/2} (q - q_map), BENCH_CHAINS chains
-     at fixed L, lazy-value trajectories: L-1 grad-only calls of the fused
-     softmax-GLM kernel and one accurate value+grad call per draw;
+  3. the sampler in whitened coordinates e = M^{1/2} (q - q_map), BENCH_CHAINS
+     chains:
+     - BENCH_SAMPLER=hmc (default): fixed L (BENCH_L), lazy-value
+       trajectories: L-1 grad-only calls of the fused softmax-GLM kernel and
+       one accurate value+grad call per draw;
+     - BENCH_SAMPLER=nuts: lockstep chain-batched NUTS, one accurate
+       value+grad call per lockstep leaf (the multinomial weights need the
+       value at every leaf).  BENCH_NUTS_DEPTH caps the doubling (default 4:
+       at most 15 leaves), or "auto": warm up at cap 6, take the cap whose
+       tree size is nearest the median leaves of the last 100 warmup steps
+       (times 0.55 above target 0.55), then refine the step for
+       min(100, BENCH_WARMUP) steps on the capped kernel;
   4. per-chain dual-averaging warmup (BENCH_WARMUP steps, target
-     BENCH_TARGET_ACCEPT), no mass adaptation;
+     BENCH_TARGET_ACCEPT), no mass adaptation; or, for HMC, BENCH_CHEES=1:
+     ChEES adapts one shared (step size, trajectory length) and sets L;
   5. an exact Gibbs move on the softmax gauge subspace after every draw;
   6. draws mapped back to parameter space and FFT ESS per coordinate.
 
@@ -50,17 +60,23 @@ def _sync(dev: torch.device) -> None:
 
 def run(*, device, chains: int = 128, warmup: int = 300, draws: int = 1000,
         num_integration_steps: int = 10, target_accept: float = 0.5,
-        dataset: str = "mnist", seed: int = 1) -> dict:
-    """Run the whole headline pipeline on ``device``; returns the JSON record."""
+        dataset: str = "mnist", seed: int = 1, sampler: str = "hmc",
+        nuts_depth=4, chees: bool = False) -> dict:
+    """Run the whole headline pipeline on ``device``; returns the JSON record.
+
+    ``sampler`` is "hmc" or "nuts"; ``nuts_depth`` an int cap or "auto";
+    ``chees`` tunes HMC's L (ignored under NUTS, as in the JAX bench)."""
     from . import full_f32_precision
     from .diagnostics.ess import effective_sample_size
-    from .inference import hmc
+    from .inference import hmc, nuts_batched
+    from .inference.chees import run_chees_warmup
     from .inference.warmup import run_warmup
     from .io import datasets
     from .models import Softmax
     from .ops.kron_metric import (cached_gn_setup, make_whitened_fused_vag,
                                   make_whitened_gauge_gibbs)
     from .ops.softmax_glm import launch_counts
+    from .ops.tree import tree_ones_like
     from .utils.profiling import SamplerStats
 
     full_f32_precision()
@@ -93,24 +109,74 @@ def run(*, device, chains: int = 128, warmup: int = 300, draws: int = 1000,
     t_setup = time.perf_counter() - t_setup0
     log(f"metric setup: {t_setup:.1f}s {aux['timings']}; MAP train acc {map_acc:.4f}")
 
+    if sampler not in ("hmc", "nuts"):
+        raise ValueError(f"sampler must be 'hmc' or 'nuts', got {sampler!r}")
+    use_nuts = sampler == "nuts"
+    nuts_auto = use_nuts and nuts_depth == "auto"
+    use_chees = chees and not use_nuts          # ChEES tunes HMC's trajectory
     gauge_gibbs = make_whitened_gauge_gibbs(metric, aux, qmap)
     batched_vag, batched_grad = make_whitened_fused_vag(model, metric, qmap, (X, y))
-    kernel = hmc.build_batched_kernel(batched_vag, num_integration_steps,
-                                      grad_fn=batched_grad)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
+    init = nuts_batched.batched_init if use_nuts else hmc.batched_init
 
     # Laplace init is exactly e ~ N(0, I) in whitened coordinates
     e0 = {"weights": torch.randn((chains, d, NUM_CLASSES), generator=gen, device=dev),
           "bias": torch.randn((chains, NUM_CLASSES), generator=gen, device=dev)}
     t0 = time.perf_counter()
-    state = hmc.batched_init(e0, batched_vag)
-    warm = run_warmup(kernel, state, warmup,
-                      initial_step_size=torch.full((chains,), 0.1, device=dev),
-                      target_acceptance=target_accept, adapt_mass=False,
-                      generator=gen)
+    nuts_kernels = []
+    if use_chees:
+        # one shared (step size, trajectory length); sampling then runs the
+        # lazy-value HMC kernel at the tuned L
+        cres = run_chees_warmup(batched_vag, hmc.batched_init(e0, batched_vag), warmup,
+                                initial_step_size=0.1, target_acceptance=target_accept,
+                                max_leapfrog_steps=64, generator=gen)
+        num_integration_steps = max(cres.num_integration_steps, 1)
+        warm_state = cres.state
+        warm_step = torch.full((chains,), float(cres.step_size), device=dev)
+        warm_inv_mass = tree_ones_like(e0)
+        log(f"ChEES warmup ({warmup} steps): eps={float(cres.step_size):.4f} "
+            f"T={float(cres.trajectory_length):.3f} -> L={num_integration_steps}")
+    else:
+        if use_nuts:
+            # an exploratory cap of 6 for "auto": trees stop at their natural U-turn
+            nuts_cap = 6 if nuts_auto else int(nuts_depth)
+            kernel = nuts_batched.build_batched_kernel(batched_vag, max_tree_depth=nuts_cap)
+            nuts_kernels.append(kernel)
+        else:
+            kernel = hmc.build_batched_kernel(batched_vag, num_integration_steps,
+                                              grad_fn=batched_grad)
+        warm = run_warmup(kernel, init(e0, batched_vag), warmup,
+                          initial_step_size=torch.full((chains,), 0.1, device=dev),
+                          target_acceptance=target_accept, adapt_mass=False,
+                          generator=gen)
+        warm_state, warm_step, warm_inv_mass = warm.state, warm.step_size, warm.inv_mass
+
+    warmup_median_leaves = None
+    if nuts_auto:
+        # the sampling cap whose tree size is nearest the warmup's natural tree
+        # size (the median leaves of its last 100 steps), truncated to 0.55 of
+        # it above target 0.55, where trees overshoot the ESS/s optimum
+        leaves_w = warm.info[0].num_integration_steps[-100:].cpu().numpy()
+        warmup_median_leaves = float(np.median(leaves_w.astype(np.float64)))
+        frac = 1.0 if target_accept <= 0.55 else 0.55
+        target_leaves = max(frac * warmup_median_leaves, 3.0)
+        nuts_cap = min(range(2, 7), key=lambda c: abs((2 ** c - 1) - target_leaves))
+        log(f"auto depth cap: warmup median leaves {warmup_median_leaves:.0f} -> cap "
+            f"{nuts_cap} ({2 ** nuts_cap - 1} leaves max)")
+        kernel = nuts_batched.build_batched_kernel(batched_vag, max_tree_depth=nuts_cap)
+        nuts_kernels.append(kernel)
+        # a short dual-averaging refinement on the capped kernel: truncated
+        # trees accept more at the same step, so the step re-adapts upward
+        refine = run_warmup(kernel, warm_state, min(100, warmup),
+                            initial_step_size=warm_step, target_acceptance=target_accept,
+                            adapt_mass=False, generator=gen)
+        warm_state, warm_step = refine.state, refine.step_size
+    elif use_chees:
+        kernel = hmc.build_batched_kernel(batched_vag, num_integration_steps,
+                                          grad_fn=batched_grad)
     _sync(dev)
     t_warm = time.perf_counter() - t0
-    ss = warm.step_size.cpu().numpy()
+    ss = warm_step.cpu().numpy()
     log(f"warmup ({warmup} steps): {t_warm:.1f}s; step size median="
         f"{np.median(ss):.4f} min={ss.min():.4f} max={ss.max():.4f}")
 
@@ -118,18 +184,27 @@ def run(*, device, chains: int = 128, warmup: int = 300, draws: int = 1000,
     e_b = torch.empty((chains, draws, NUM_CLASSES), device=dev)
     acc_sum = torch.zeros((chains,), device=dev)
     div_sum = torch.zeros((chains,), device=dev)
+    leaves_sum = torch.zeros((chains,), device=dev)
+    leaves_before = kernel.leaves_executed if use_nuts else 0
     stats = SamplerStats(num_chains=chains).start()
-    st = hmc.batched_init(warm.state.position, batched_vag)
+    st = init(warm_state.position, batched_vag)
     for t in range(draws):
-        st, info = kernel(st, warm.step_size, warm.inv_mass, generator=gen)
+        st, info = kernel(st, warm_step, warm_inv_mass, generator=gen)
         st = gauge_gibbs(st, generator=gen)
         e_w[:, t] = st.position["weights"]
         e_b[:, t] = st.position["bias"]
         acc_sum += info.acceptance_prob
         div_sum += info.is_divergent
+        leaves_sum += info.num_integration_steps
     _sync(dev)
-    stats.stop(draws=chains * draws, grad_evals=chains * draws * num_integration_steps)
+    # grad evals: for NUTS the leaves the lockstep kernel executed (the max
+    # over chains, plus any masked leaf a late flag read let through); the
+    # per-chain tree sizes are reported apart
+    executed = (kernel.leaves_executed - leaves_before if use_nuts
+                else draws * num_integration_steps)
+    stats.stop(draws=chains * draws, grad_evals=chains * executed)
     t_sample = stats.seconds
+    mean_leaves = float(leaves_sum.sum()) / (chains * draws)
 
     # back to parameter space, one chain at a time, in place
     t0 = time.perf_counter()
@@ -186,10 +261,17 @@ def run(*, device, chains: int = 128, warmup: int = 300, draws: int = 1000,
             "ess_seconds": t_ess,
             "path": "cuda-kernel" if dev.type == "cuda" else "torch-plain",
             "kernel_launches": dict(launch_counts),
-            "sampler": "hmc",
-            "num_integration_steps": num_integration_steps,
+            "sampler": sampler,
+            "nuts_depth_cap": nuts_cap if use_nuts else None,
+            "nuts_depth_mode": ("auto" if nuts_auto else "fixed") if use_nuts else None,
+            "warmup_median_leaves": warmup_median_leaves,
+            "num_integration_steps": mean_leaves,
+            "lockstep_evals_per_draw": executed / draws,
+            "lockstep_leaves": (sum(k.leaves_executed for k in nuts_kernels)
+                                if use_nuts else None),
             "target_accept": target_accept,
-            "warmup": "dual-averaging",
+            "warmup": "chees" if use_chees else "dual-averaging",
+            "chees_leapfrog_steps": sum(cres.info[3]) if use_chees else None,
             "dataset": provenance,
         },
     }
@@ -201,12 +283,9 @@ def main(argv=None) -> None:
                         help="torch device (default cuda; cpu only when named)")
     args = parser.parse_args(argv)
 
-    if os.environ.get("BENCH_SAMPLER", "hmc") != "hmc":
-        raise NotImplementedError("BENCH_SAMPLER=nuts: batched NUTS is not ported yet")
-    if os.environ.get("BENCH_CHEES", "0") == "1":
-        raise NotImplementedError("BENCH_CHEES=1: ChEES warmup is not ported yet")
     if int(os.environ.get("BENCH_CHAIN_SHARDS", "1")) > 1:
         raise NotImplementedError("BENCH_CHAIN_SHARDS>1: chain sharding is not ported yet")
+    depth = os.environ.get("BENCH_NUTS_DEPTH", "4")
     result = run(
         device=args.device,
         chains=int(os.environ.get("BENCH_CHAINS", "128")),
@@ -215,6 +294,9 @@ def main(argv=None) -> None:
         num_integration_steps=int(os.environ.get("BENCH_L", "10")),
         target_accept=float(os.environ.get("BENCH_TARGET_ACCEPT", "0.5")),
         dataset=os.environ.get("BENCH_DATASET", "mnist"),
+        sampler=os.environ.get("BENCH_SAMPLER", "hmc"),
+        nuts_depth=("auto" if depth == "auto" else int(depth)),
+        chees=os.environ.get("BENCH_CHEES", "0") == "1",
     )
     print(json.dumps(result))
 

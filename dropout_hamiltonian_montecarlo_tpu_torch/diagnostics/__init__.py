@@ -1,1 +1,25 @@
-"""Convergence diagnostics."""
+"""Convergence and calibration diagnostics."""
+
+from .calibration import (
+    calibration_report,
+    expected_calibration_error,
+    posterior_predictive_probs,
+    predictive_nll,
+    reliability_bins,
+)
+from .ess import effective_sample_size
+from .rhat import potential_scale_reduction, split_rhat, split_rhat_pytree
+from .summary import summarize
+
+__all__ = [
+    "effective_sample_size",
+    "potential_scale_reduction",
+    "split_rhat",
+    "split_rhat_pytree",
+    "summarize",
+    "calibration_report",
+    "expected_calibration_error",
+    "posterior_predictive_probs",
+    "predictive_nll",
+    "reliability_bins",
+]

@@ -3,13 +3,14 @@
 ``mnist()`` generates the deterministic MNIST-shaped synthetic training set,
 byte-identical to the JAX package's generator (numpy ``RandomState``).  The
 arrays come back as numpy (X float32 (60000, 784) on the 8-bit k/256 grid,
-y int32 (60000,)); nothing is cached on disk.  scikit-learn is imported only
-when ``digits()`` is called.  Reading a real MNIST HDF5 file is not ported
-yet.
+y int32 (60000,)); nothing is cached on disk.  ``digits()`` reads
+``digits.npz`` beside this module, so it needs no scikit-learn.  Reading a
+real MNIST HDF5 file is not ported yet.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Tuple
 
 import numpy as np
@@ -39,8 +40,12 @@ def mnist() -> Tuple[np.ndarray, np.ndarray]:
 
 def digits() -> Tuple[np.ndarray, np.ndarray]:
     """Real bundled image data (scikit-learn's 8x8 digits, 1797 x 64,
-    10 classes), pixels scaled to [0, 1]."""
-    from sklearn import datasets as skdatasets
+    10 classes), pixels scaled to [0, 1] as ``load_digits().data / 16``.
 
-    d = skdatasets.load_digits()
-    return (d.data / 16.0).astype(np.float32), d.target.astype(np.int32)
+    ``digits.npz`` holds scikit-learn's bundled copy of the UCI optical
+    digits as uint8 (``pixels`` 0..16, ``labels``), written once by
+    ``np.savez_compressed(path, pixels=d.data.astype(np.uint8),
+    labels=d.target.astype(np.uint8))`` with ``d = load_digits()``."""
+    with np.load(os.path.join(os.path.dirname(__file__), "digits.npz")) as f:
+        pixels, labels = f["pixels"], f["labels"]
+    return (pixels.astype(np.float64) / 16.0).astype(np.float32), labels.astype(np.int32)

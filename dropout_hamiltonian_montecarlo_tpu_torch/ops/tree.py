@@ -6,6 +6,7 @@ chain-batched forms every leaf carries a leading chain axis C.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
 import torch
@@ -50,6 +51,27 @@ def tree_where_bcast(pred: torch.Tensor, a, b):
     if isinstance(a, dict):
         return {k: torch.where(_bcast(pred, a[k]), a[k], b[k]) for k in a}
     return torch.where(_bcast(pred, a), a, b)
+
+
+def tree_batch_ravel(a: Params):
+    """Chain-batched dict (leaves (C, ...)) -> ((C, P) matrix, unravel).
+    Leaves are laid side by side in sorted key order, the order of the JAX
+    package's ``tree_batch_ravel`` (a {'weights', 'bias'} row is [bias,
+    weights]).  ``unravel`` maps a (C, P) matrix back to the dict (views
+    into it)."""
+    keys = sorted(a)
+    shapes = [a[k].shape[1:] for k in keys]
+    sizes = [math.prod(s) for s in shapes]
+    mat = torch.cat([a[k].reshape(a[k].shape[0], -1) for k in keys], dim=1)
+
+    def unravel(z: torch.Tensor) -> Params:
+        out, off = {}, 0
+        for k, s, n in zip(keys, shapes, sizes):
+            out[k] = z[:, off:off + n].reshape((z.shape[0],) + s)
+            off += n
+        return out
+
+    return mat, unravel
 
 
 def tree_batched_dot(a: Params, b: Params) -> torch.Tensor:

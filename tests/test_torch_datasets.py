@@ -1,5 +1,7 @@
 """The port's dataset loaders give the JAX package's arrays, byte for byte."""
 
+import sys
+
 import numpy as np
 import pytest
 
@@ -33,3 +35,14 @@ def test_digits_match():
     assert X.shape == (1797, 64)
     assert X.tobytes() == np.asarray(jX).tobytes()
     assert y.tobytes() == np.asarray(jy).tobytes()
+
+
+def test_digits_needs_no_sklearn(monkeypatch):
+    """The port needs no scikit-learn: it reads its bundled copy."""
+    from sklearn import datasets as sk
+
+    ref = sk.load_digits()
+    monkeypatch.setitem(sys.modules, "sklearn", None)
+    X, y = datasets.digits()
+    assert X.tobytes() == (ref.data / 16.0).astype(np.float32).tobytes()
+    assert y.tobytes() == ref.target.astype(np.int32).tobytes()

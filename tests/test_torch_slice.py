@@ -141,13 +141,43 @@ def test_bench_entry_point_on_cpu():
     assert np.isfinite(out["value"]) and 0.0 < det["acceptance"] <= 1.0
 
 
-@pytest.mark.parametrize("env", [{"BENCH_SAMPLER": "nuts"}, {"BENCH_CHEES": "1"},
-                                 {"BENCH_CHAIN_SHARDS": "2"}])
+@pytest.mark.parametrize("env", [{"BENCH_CHAIN_SHARDS": "2"}])
 def test_bench_unported_options_raise(env, monkeypatch):
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     with pytest.raises(NotImplementedError, match="not ported yet"):
         bench.main(["--device", "cpu"])
+
+
+@pytest.mark.parametrize("env", [{"BENCH_SAMPLER": "nuts", "BENCH_NUTS_DEPTH": "auto"},
+                                 {"BENCH_CHEES": "1"}], ids=["nuts-auto", "chees"])
+def test_bench_adaptive_paths_on_cpu(env, monkeypatch, capsys):
+    """The bench's NUTS (depth cap from the warmup) and ChEES paths, on
+    digits with 4 chains, 10 warmup steps and 20 draws."""
+    for k, v in dict(env, BENCH_DATASET="digits", BENCH_CHAINS="4", BENCH_WARMUP="10",
+                     BENCH_DRAWS="20").items():
+        monkeypatch.setenv(k, v)
+    bench.main(["--device", "cpu"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    out = json.loads(lines[0])
+    assert out["metric"] == "median_ess_per_sec_mnist_softmax_hmc" and out["device"] == "cpu"
+    det = out["detail"]
+    assert np.isfinite(out["value"]) and 0.0 < det["acceptance"] <= 1.0
+    assert det["kernel_launches"] == {"value_and_grad": 0, "grad": 0}
+    if "BENCH_SAMPLER" in env:
+        assert det["sampler"] == "nuts" and det["nuts_depth_mode"] == "auto"
+        assert det["warmup"] == "dual-averaging" and det["warmup_median_leaves"] >= 1
+        assert 2 <= det["nuts_depth_cap"] <= 6
+        # the lockstep kernel runs at least the largest tree of each draw
+        assert 1 <= det["num_integration_steps"] <= det["lockstep_evals_per_draw"]
+        assert det["lockstep_evals_per_draw"] <= 2 ** det["nuts_depth_cap"]
+        assert det["lockstep_leaves"] >= 20 * det["lockstep_evals_per_draw"]
+    else:
+        assert det["sampler"] == "hmc" and det["warmup"] == "chees"
+        assert 1 <= det["num_integration_steps"] <= 64
+        assert det["lockstep_evals_per_draw"] == det["num_integration_steps"]
+        assert det["chees_leapfrog_steps"] >= 10
 
 
 def test_bench_cuda_default_needs_a_card():
