@@ -24,10 +24,26 @@ Phases, one line each (any failure exits non-zero):
      draws, depth cap 4; its JSON line and checks (R-hat finite, train and
      predictive accuracy above 0.85);
   7. ChEES: the HMC bench with ChEES warmup, 50 warmup steps and 50 draws;
-     checks (finite step, 1 <= L <= 64, finite ESS) and exact launch counts.
-Phases 4-7 each count the kernel's launches from zero just before the run
+     checks (finite step, 1 <= L <= 64, finite ESS) and exact launch counts;
+  8. configs 1-2 at full size through the CLI: ``mvn-hmc`` (4 chains x 1000
+     draws, HMC and ``--nuts``: mean within 0.1 and covariance within 0.15
+     of the target, min ESS > 2000, max R-hat < 1.01, acceptance in (0.6,
+     0.99), zero divergences), ``logistic-hmc`` (32 x 1000: test accuracy >=
+     0.98, max R-hat < 1.01, min ESS >= half the draws), and random-walk
+     Metropolis on the same 2-D MVN through ``run_warmup_scale`` (moments
+     within 0.15); draws/s and the device's busy share of each;
+  9. the per-chain ``mnist-nuts`` modes on the synthetic MNIST (128 chains,
+     depth cap 4, 30 warmup + 30 draws): ``--per-chain-nuts`` (finite R-hat,
+     train and predictive accuracy > 0.85, zero divergences, <= 15 leaves)
+     and ``--diag-mass`` (finite outputs, adapted inverse mass off the
+     identity).  Both run the plain autograd value+grad: the fused kernel is
+     launched no time.
+Phases 4-9 each count the kernel's launches from zero just before the run
 and read them just after.  Then one JSON line describing each kernel (its
-launches summed over phases 4-7), and last:
+launches summed over phases 4-9, its bound from the bytes and operations of
+the bench-shape call; ``library_ms`` is null because no single PyTorch call
+computes the function: the plain version is two matmuls and a log_softmax),
+and last:
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 Without a CUDA device it exits non-zero before printing any result.
 """
@@ -38,10 +54,15 @@ import json
 import math
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 WARMUP, DRAWS, CHAINS, L = 50, 100, 128, 10
 NUTS_WARMUP, NUTS_DRAWS, NUTS_DEPTH = 50, 50, 4
+PER_CHAIN_WARMUP, PER_CHAIN_DRAWS = 30, 30
+# NVIDIA's data sheet for the H100 SXM: dense bf16 tensor-core rate (the
+# kernel's products are bf16 pieces), and the HBM3 rate
+PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
 SOURCE = "dropout_hamiltonian_montecarlo_tpu_torch/csrc/softmax_glm.cu"
 REPLACES = "dropout_hamiltonian_montecarlo_tpu/ops/pallas_glm.py:98"
 # tolerances: the value feeds the MH accept, whose energy delta is O(1), so
@@ -123,12 +144,91 @@ def check_finite(det: dict, keys) -> None:
             fail(f"{key} is not finite: {det[key]}")
 
 
+def run_cli(torch, cli, sampling, argv):
+    """One CLI run with its JSON line parsed; the kernel, the Posterior and
+    the wall seconds of its ``sample_posterior`` call are captured on the
+    way, for the checks the JSON line has no key for."""
+    seen = {}
+    inner = sampling.sample_posterior
+
+    def capture(init_fn, kernel, *args, **kwargs):
+        t0 = time.perf_counter()
+        post = inner(init_fn, kernel, *args, **kwargs)
+        torch.cuda.synchronize()
+        seen.update(kernel=kernel, post=post, generator=kwargs["generator"],
+                    seconds=time.perf_counter() - t0)
+        return post
+
+    sampling.sample_posterior = capture
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            cli.main(argv)
+    finally:
+        sampling.sample_posterior = inner
+    torch.cuda.synchronize()
+    line = out.getvalue().strip().splitlines()[-1]
+    return line, json.loads(line), seen
+
+
+def busy_share(torch, step, n):
+    """(ms per call of ``step``, device-busy share): the kernel time that
+    torch.profiler sums over ``n`` calls, over the wall time of ``n``
+    unprofiled calls.  The share is None if the profiler saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    # kernels and copies only: an operator's row repeats its kernels' time
+    device_us = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA)
+    return wall / n * 1e3, (device_us / 1e6 / wall if device_us else None)
+
+
+def draw_rate(torch, seen, steps, n=20):
+    """Draws/s of a captured run (all chains, warmup steps included) and the
+    busy share of ``n`` more steps of its kernel from its final state."""
+    post = seen["post"]
+    chains = post.step_size.shape[0]
+
+    def step():
+        seen["kernel"](post.final_state, post.step_size, post.inv_mass,
+                       generator=seen["generator"])
+
+    ms, busy = busy_share(torch, step, n)
+    return {"chain_draws_per_s": round(chains * steps / seen["seconds"], 1),
+            "ms_per_step": round(ms, 3), "busy_share": None if busy is None else round(busy, 4)}
+
+
+def check_moments(name, x, mean, cov, mean_atol, cov_atol) -> None:
+    import numpy as np
+
+    flat = x.reshape(-1, x.shape[-1]).double().cpu().numpy()
+    mean_err = float(np.abs(flat.mean(0) - mean).max())
+    cov_err = float(np.abs(np.cov(flat.T) - cov).max())
+    if mean_err > mean_atol or cov_err > cov_atol:
+        fail(f"{name}: mean off by {mean_err:.3f} (> {mean_atol}) or covariance by "
+             f"{cov_err:.3f} (> {cov_atol})")
+
+
 def main() -> None:
     import torch
 
     if not torch.cuda.is_available():
         fail("no CUDA device")
     from dropout_hamiltonian_montecarlo_tpu_torch import bench, cli, full_f32_precision
+    from dropout_hamiltonian_montecarlo_tpu_torch.inference import metropolis, sampling
+    from dropout_hamiltonian_montecarlo_tpu_torch.models import MVNGaussian
     from dropout_hamiltonian_montecarlo_tpu_torch.ops import softmax_glm as sg
     from dropout_hamiltonian_montecarlo_tpu_torch.ops.cuda_build import BUILD_INFO, find_nvcc
     from dropout_hamiltonian_montecarlo_tpu_torch.utils.profiling import cuda_time_ms
@@ -189,6 +289,18 @@ def main() -> None:
           f"{ms_plain:.3f}; TFLOP/s (two f32-equivalent GEMMs) value+grad "
           f"{flop / ms_full / 1e9:.2f} grad-only {flop / ms_grad / 1e9:.2f} plain "
           f"{flop / ms_plain / 1e9:.2f}", flush=True)
+    # the least time the card could take for one call: each input read once
+    # (X in the bf16 the call is handed, 2 bytes an element; Y, W, b in f32),
+    # each output written once (gW, gb, the values), against the two GEMMs
+    # 2 N (D+1) K C at the dense bf16 tensor rate
+    moved = 2 * Xb.numel() + 4 * (Yb.numel() + 2 * Wb.numel() + 2 * bb.numel() + CHAINS)
+    bytes_ms = moved / PEAK_BYTES_PER_S * 1e3
+    flop_ms = 2 * 2 * 60000 * 785 * 10 * CHAINS / PEAK_BF16_FLOPS * 1e3
+    bound_ms, bound_by = max(bytes_ms, flop_ms), "operations" if flop_ms >= bytes_ms else "bytes"
+    print(f"phase 3 bound: {bound_ms:.4f} ms by {bound_by} ({flop_ms:.4f} ms for 2 GEMMs of "
+          f"2*60000*785*1280 flop at 989 TFLOP/s bf16; {bytes_ms:.4f} ms for {moved / 1e6:.1f} "
+          f"MB at 3.35 TB/s); the exact bf16 splits run 5 passes for value+grad "
+          f"({2.5 * flop_ms:.4f} ms) and 4 grad-only ({2 * flop_ms:.4f} ms)", flush=True)
     del Xb, Yb, Wb, bb, split, call
     torch.cuda.empty_cache()
 
@@ -283,15 +395,107 @@ def main() -> None:
         fail(f"ChEES kernel launches {counts} != the path's calls {want}")
     print(f"phase 7 launch counts: {counts} (expected {want})", flush=True)
 
+    # ---- 8. configs 1-2 through the CLI, Metropolis --------------------------
+    sg.reset_launch_counts()
+    target_cov = torch.tensor([[1.5, 0.5], [0.5, 1.5]])
+    for extra in ([], ["--nuts"]):
+        line, agg, seen = run_cli(torch, cli, sampling,
+                                  ["mvn-hmc", "--chains", "4", "--samples", "1000"] + extra)
+        post = seen["post"]
+        rate = draw_rate(torch, seen, 300 + 1000)
+        acc = float(post.infos.acceptance_prob.mean())
+        label = "mvn-hmc " + " ".join(extra)
+        print(f"phase 8 {label}: {line}; acceptance {acc:.4f}, leapfrog steps per draw "
+              f"{float(post.infos.num_integration_steps.float().mean()):.2f}; "
+              + json.dumps(rate), flush=True)
+        check_moments(label, post.positions["x"], 0.0, target_cov.numpy(), 0.1, 0.15)
+        if not agg["min_ess"] > 2000 or not agg["max_rhat"] < 1.01:
+            fail(f"{label}: min ESS {agg['min_ess']} <= 2000 or max R-hat {agg['max_rhat']}")
+        if not 0.6 < acc < 0.99 or bool(post.infos.is_divergent.any()):
+            fail(f"{label}: acceptance {acc} outside (0.6, 0.99) or a divergence")
+    line, agg, seen = run_cli(torch, cli, sampling,
+                              ["logistic-hmc", "--chains", "32", "--samples", "1000"])
+    print("phase 8 logistic-hmc: " + line + "; "
+          + json.dumps(draw_rate(torch, seen, 300 + 1000)), flush=True)
+    if (agg["test_accuracy"] < 0.98 or not agg["max_rhat"] < 1.01
+            or agg["min_ess"] < 0.5 * 32 * 1000):
+        fail(f"logistic-hmc: accuracy {agg['test_accuracy']}, max R-hat {agg['max_rhat']}, "
+             f"min ESS {agg['min_ess']}")
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    logdensity = MVNGaussian(torch.zeros(2, device="cuda"), target_cov.cuda()).make_logdensity()
+    mh = metropolis.build_kernel(logdensity)
+    state = metropolis.init({"x": torch.randn((32, 2), generator=gen, device="cuda")},
+                            logdensity)
+    t0 = time.perf_counter()
+    state, scale = metropolis.run_warmup_scale(mh, state, 1000, initial_scale=10.0,
+                                               generator=gen)
+    xs, accepted = [], []
+    for _ in range(3000):
+        state, info = mh(state, scale, generator=gen)
+        xs.append(state.position["x"])
+        accepted.append(info.is_accepted)
+    torch.cuda.synchronize()
+    mh_s = time.perf_counter() - t0
+    ms, busy = busy_share(torch, lambda: mh(state, scale, generator=gen), 50)
+    print(f"phase 8 metropolis: 32 chains, 1000 tuning + 3000 draws in {mh_s:.2f}s "
+          f"({32 * 4000 / mh_s:.1f} chain-steps/s, {ms:.3f} ms per step, busy share "
+          f"{busy if busy is None else round(busy, 4)}); acceptance "
+          f"{float(torch.stack(accepted).float().mean()):.3f}; scale "
+          f"{float(scale.min()):.3f}-{float(scale.max()):.3f}", flush=True)
+    check_moments("metropolis", torch.stack(xs), 0.0, target_cov.numpy(), 0.15, 0.15)
+    counts = dict(sg.launch_counts)
+    add(counts)
+    if any(counts.values()):
+        fail(f"phase 8 launched the fused kernel: {counts}")
+
+    # ---- 9. the per-chain mnist-nuts modes -----------------------------------
+    sg.reset_launch_counts()
+    common = ["mnist-nuts", "--chains", str(CHAINS), "--samples", str(PER_CHAIN_DRAWS),
+              "--warmup", str(PER_CHAIN_WARMUP), "--max-depth", str(NUTS_DEPTH)]
+    line, agg, seen = run_cli(torch, cli, sampling, common + ["--per-chain-nuts"])
+    post = seen["post"]
+    leaves = float(post.infos.num_integration_steps.double().mean())
+    print(f"phase 9 --per-chain-nuts: {line}; leaves per draw {leaves:.2f}, acceptance "
+          f"{float(post.infos.acceptance_prob.mean()):.4f}; "
+          + json.dumps(draw_rate(torch, seen, PER_CHAIN_WARMUP + PER_CHAIN_DRAWS, n=5)),
+          flush=True)
+    check_finite(agg, ("max_rhat", "min_ess", "median_ess"))
+    for key in ("train_accuracy", "predictive_accuracy"):
+        if not agg[key] > 0.85:
+            fail(f"--per-chain-nuts {key} {agg[key]} <= 0.85")
+    if bool(post.infos.is_divergent.any()) or leaves > 2 ** NUTS_DEPTH - 1:
+        fail(f"--per-chain-nuts: a divergence, or {leaves} leaves per draw")
+    line, agg, seen = run_cli(torch, cli, sampling, common + ["--diag-mass"])
+    inv_mass = seen["post"].inv_mass
+    print(f"phase 9 --diag-mass: {line}; inverse mass "
+          f"{float(inv_mass['weights'].min()):.3g}-{float(inv_mass['weights'].max()):.3g}; "
+          + json.dumps(draw_rate(torch, seen, PER_CHAIN_WARMUP + PER_CHAIN_DRAWS, n=5)),
+          flush=True)
+    check_finite(agg, ("max_rhat", "min_ess", "median_ess", "train_accuracy",
+                       "predictive_accuracy", "predictive_nll"))
+    if not all(bool(torch.isfinite(v).all()) for v in inv_mass.values()):
+        fail("--diag-mass: the adapted inverse mass is not finite")
+    if all(bool((v == 1).all()) for v in inv_mass.values()):
+        fail("--diag-mass: the inverse mass is still the identity")
+    counts = dict(sg.launch_counts)
+    add(counts)
+    if any(counts.values()):
+        fail(f"phase 9 launched the fused kernel: {counts}")
+    print(f"phases 8-9 launch counts of the fused kernel: {counts} (expected zeros)",
+          flush=True)
+
     kernels = [
         {"name": "softmax_glm_value_and_grad", "route": "cuda", "source": SOURCE,
          "replaces": REPLACES, "launches": total["value_and_grad"],
          "max_abs_err": max(big["value"], big["gw"], big["gb"]),
-         "ms": ms_full, "plain_ms": ms_plain},
+         "ms": ms_full, "plain_ms": ms_plain, "bound_ms": bound_ms, "bound_by": bound_by,
+         "library_ms": None},
         {"name": "softmax_glm_grad", "route": "cuda", "source": SOURCE,
          "replaces": REPLACES, "launches": total["grad"],
          "max_abs_err": max(big["gw_gradonly"], big["gb_gradonly"]),
-         "ms": ms_grad, "plain_ms": ms_plain},
+         "ms": ms_grad, "plain_ms": ms_plain, "bound_ms": bound_ms, "bound_by": bound_by,
+         "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -2,8 +2,25 @@
 
 The JAX package beside this one is the reference; this package imports torch
 and never jax.  Ported so far: the headline MNIST-softmax HMC path (see
-``bench.py``), with the fused softmax-GLM value+grad as a hand-written CUDA
-kernel for Hopper (``csrc/softmax_glm.cu``).
+``bench.py``) with the fused softmax-GLM value+grad as a hand-written CUDA
+kernel for Hopper (``csrc/softmax_glm.cu``), config 3 (lockstep
+chain-batched NUTS, ChEES, the diagnostics), and configs 1-2: the per-chain
+HMC, NUTS and Metropolis kernels, Stan window warmup, the small models and
+the ``mvn-hmc`` / ``logistic-hmc`` / ``mnist-nuts`` CLI.
+
+**The chain axis.**  The JAX package writes a sampler for one chain and runs
+many under ``jax.vmap``.  PyTorch has no ``vmap`` over data-dependent Python
+loops, so here every sampler state carries a leading chain axis C (C = 1 for
+one chain): state leaves are (C, ...), step sizes, log densities and info
+fields are (C,), a diagonal inverse mass has leaves (C, ...).  A "per-chain"
+kernel is a chain-batched kernel with per-chain masks: each chain has its own
+random draws, trajectory length, tree, step size and mass, and a chain that
+has finished a masked loop is frozen by a select while the others go on,
+which is what XLA makes of ``vmap(while_loop)``.  A ``logdensity_fn`` keeps
+the JAX meaning, one chain's params dict -> scalar;
+``ops.integrators.lift_value_and_grad`` is the one place where it is lifted
+over the chain axis.  Every random number of a step can be injected;
+otherwise it comes from an explicit ``torch.Generator``.
 """
 
 import torch

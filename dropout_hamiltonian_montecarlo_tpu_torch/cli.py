@@ -1,15 +1,20 @@
 """Command-line entry point of the port.
 
-    python -m dropout_hamiltonian_montecarlo_tpu_torch.cli mnist-nuts [options]
-    dhmc-torch mnist-nuts [options]
+    python -m dropout_hamiltonian_montecarlo_tpu_torch.cli <subcommand> [options]
+    dhmc-torch <subcommand> [options]
 
-  mnist-nuts  config 3: MNIST softmax, full-batch lockstep chain-batched NUTS
-              in the whitened Kronecker Gauss-Newton coordinates
+  mvn-hmc       config 1: 2-D MVN target, multi-chain HMC (or --nuts)
+  logistic-hmc  config 2: Bayesian logistic regression on blobs, 32 chains
+  mnist-nuts    config 3: MNIST softmax, full-batch lockstep chain-batched NUTS
+                in the whitened Kronecker Gauss-Newton coordinates;
+                --per-chain-nuts runs the per-chain kernel with the Kronecker
+                metric, --diag-mass plain diagonal-mass NUTS
 
-Prints one JSON summary line with the keys of the JAX package's
-``dhmc-tpu mnist-nuts`` (batched path) plus ``"device"``.  The default device
-is cuda and the run fails without a card; ``--device cpu`` must be asked for
-by name.  The other subcommands of the JAX CLI are not ported yet.
+Each prints one JSON summary line with the keys of the JAX package's
+``dhmc-tpu`` subcommand of the same name plus ``"device"`` (no ``compile_s``:
+nothing is compiled).  The default device is cuda and the run fails without a
+card; ``--device cpu`` must be asked for by name.  ``mnist-mlp-sgmcmc``,
+``mnist-vi`` and ``plantvillage-smc`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -44,25 +49,119 @@ def _common(p: argparse.ArgumentParser) -> None:
 
 def _refuse_unported(args) -> None:
     """Options of the JAX CLI that the port does not run yet, each with its
-    ROADMAP item."""
+    ROADMAP slice."""
     unported = [
         (args.save is not None, "--save: HDF5 backends are not ported yet (ROADMAP slice 5)"),
         (args.stream_chunk > 0,
          "--stream-chunk: HDF5 spooling is not ported yet (ROADMAP slice 5)"),
         (args.checkpoint is not None or args.resume,
          "--checkpoint/--resume: checkpoints are not ported yet (ROADMAP slice 5)"),
-        (args.chain_shards > 1, "--chain-shards > 1: chain sharding is not ported yet "
-                                "(ROADMAP slice 5)"),
-        (args.diag_mass, "--diag-mass: Welford mass adaptation is not ported yet "
-                         "(ROADMAP slice 3)"),
-        (args.per_chain_nuts, "--per-chain-nuts: the per-chain NUTS kernel is not ported "
-                              "yet (ROADMAP slice 3)"),
-        (args.data is not None, "--data PATH: the MNIST HDF5 reader is not ported yet "
-                                "(ROADMAP slice 5)"),
+        (getattr(args, "chain_shards", 1) > 1,
+         "--chain-shards > 1: chain sharding is not ported yet (ROADMAP slice 5)"),
+        (getattr(args, "data", None) is not None,
+         "--data PATH: the MNIST HDF5 reader is not ported yet (ROADMAP slice 5)"),
     ]
     for refused, msg in unported:
         if refused:
             raise NotImplementedError(msg)
+
+
+def _device(args) -> torch.device:
+    """The run's device; the entry points run on the card unless the CPU is
+    named.  Also turns TF32 off: the values feed MH accepts."""
+    from . import full_f32_precision
+
+    dev = torch.device(args.device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device; pass --device cpu to run on the CPU")
+    full_f32_precision()
+    return dev
+
+
+def _device_name(dev: torch.device) -> str:
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+
+
+def _run_chains(args, init_fn, kernel, positions, gen, adapt_mass=True):
+    """``sample_posterior`` with the common options.  Returns (positions with
+    (chains, draws, ...) leading axes, run_s): warmup and sampling together,
+    as the JAX CLI times them."""
+    from .inference.sampling import sample_posterior
+
+    dev = next(iter(positions.values())).device
+    t0 = time.perf_counter()
+    post = sample_posterior(init_fn, kernel, positions, num_samples=args.samples,
+                            num_warmup=args.warmup, num_chains=args.chains,
+                            initial_step_size=args.step_size, adapt_mass=adapt_mass,
+                            generator=gen)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return post.positions, time.perf_counter() - t0
+
+
+def _save_and_summarize(positions, elapsed) -> dict:
+    """The aggregate ESS / R-hat line of the draws (``--save`` is refused
+    before any run: file backends are not ported yet)."""
+    from .diagnostics import summarize
+
+    s = summarize(positions, elapsed_seconds=elapsed)
+    return {k: float(v) for k, v in s["aggregate"].items()}
+
+
+def cmd_mvn_hmc(args) -> dict:
+    from .inference import hmc, nuts
+    from .inference.sampling import init_chain_positions
+    from .models import MVNGaussian
+
+    _refuse_unported(args)
+    dev = _device(args)
+    a = 0.5 * torch.ones((args.dim, args.dim), device=dev)
+    model = MVNGaussian(torch.zeros(args.dim, device=dev), a @ a.T + torch.eye(args.dim,
+                                                                               device=dev))
+    logdensity = model.make_logdensity()
+    if args.nuts:
+        kernel = nuts.build_kernel(logdensity)
+        init_fn = lambda p: nuts.init(p, logdensity)   # noqa: E731
+    else:
+        kernel = hmc.build_kernel(logdensity, args.num_steps)
+        init_fn = lambda p: hmc.init(p, logdensity)    # noqa: E731
+
+    gen = torch.Generator(device=dev).manual_seed(int(args.seed))
+    positions = init_chain_positions(model.init_params, args.chains, jitter=1.0,
+                                     generator=gen, device=dev)
+    draws, run_s = _run_chains(args, init_fn, kernel, positions, gen)
+    agg = _save_and_summarize(draws, run_s)
+    agg.update({"workload": "mvn-hmc", "run_s": round(run_s, 2),
+                "device": _device_name(dev)})
+    print(json.dumps(agg), flush=True)
+    return agg
+
+
+def cmd_logistic_hmc(args) -> dict:
+    from .inference import hmc
+    from .inference.sampling import init_chain_positions
+    from .io import datasets
+    from .models import Logistic
+
+    _refuse_unported(args)
+    dev = _device(args)
+    (Xtr, ytr), (Xte, yte) = [tuple(torch.from_numpy(a).to(dev) for a in part)
+                              for part in datasets.blobs(n=args.n_data)]
+    model = Logistic(dim=Xtr.shape[1], alpha=args.alpha)
+    logdensity = model.make_logdensity(batch=(Xtr, ytr))
+    kernel = hmc.build_kernel(logdensity, args.num_steps)
+
+    gen = torch.Generator(device=dev).manual_seed(int(args.seed))
+    positions = init_chain_positions(model.init_params, args.chains, jitter=0.5,
+                                     generator=gen, device=dev)
+    draws, run_s = _run_chains(args, lambda p: hmc.init(p, logdensity), kernel, positions, gen)
+    pm = {k: v.mean(dim=(0, 1)) for k, v in draws.items()}
+    acc = float((model.predict(pm, Xte) == yte).to(torch.float32).mean())
+    agg = _save_and_summarize(draws, run_s)
+    agg.update({"workload": "logistic-hmc", "test_accuracy": acc, "run_s": round(run_s, 2),
+                "device": _device_name(dev)})
+    print(json.dumps(agg), flush=True)
+    return agg
 
 
 def _run_mnist_nuts_batched(args, model, metric, qmap, X, y, gen):
@@ -152,17 +251,15 @@ def _run_mnist_nuts_batched(args, model, metric, qmap, X, y, gen):
 
 
 def cmd_mnist_nuts(args) -> dict:
-    from . import full_f32_precision
-    from .diagnostics import calibration_report
+    from .diagnostics import calibration_report, posterior_predictive_probs
+    from .inference import nuts
+    from .inference.sampling import init_chain_positions
     from .io import datasets
     from .models import Softmax
     from .ops.kron_metric import cached_gn_setup
 
     _refuse_unported(args)
-    dev = torch.device(args.device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device; pass --device cpu to run on the CPU")
-    full_f32_precision()
+    dev = _device(args)
 
     if args.dataset == "digits":
         # real bundled pixels (scikit-learn's 8x8 digits), k/16: exact in bf16
@@ -177,30 +274,60 @@ def cmd_mnist_nuts(args) -> dict:
     model = Softmax(dim=X.shape[1], n_classes=NUM_CLASSES, alpha=args.alpha)
     gen = torch.Generator(device=dev).manual_seed(int(args.seed))
 
-    # Kronecker Gauss-Newton metric + Newton MAP; no setup cache (every stage
-    # takes well under a second on the card)
-    t0 = time.perf_counter()
-    metric, _, qmap, setup_cached = cached_gn_setup(
-        X, y, model, alpha=args.alpha, newton_steps=60, cache_dir=None,
-        provenance=provenance, seed=args.seed)
-    setup_s = time.perf_counter() - t0
+    setup_s, setup_cached = 0.0, False
+    if args.diag_mass:
+        # plain diagonal-mass NUTS (escape hatch; does not mix at MNIST scale:
+        # the posterior's conditioning spans ~6 orders of magnitude)
+        metric, adapt_mass = None, True
+        positions = init_chain_positions(model.init_params, args.chains, generator=gen,
+                                         device=dev)
+    else:
+        # Kronecker Gauss-Newton metric + Newton MAP; no setup cache (every
+        # stage takes well under a second on the card)
+        t0 = time.perf_counter()
+        metric, _, qmap, setup_cached = cached_gn_setup(
+            X, y, model, alpha=args.alpha, newton_steps=60, cache_dir=None,
+            provenance=provenance, seed=args.seed)
+        adapt_mass = False
+        if args.per_chain_nuts:
+            # Laplace chain init in parameter space (the batched path draws
+            # its own e ~ N(0, I) whitened init, the identical distribution)
+            eps = torch.randn((args.chains,) + tuple(metric.d_aug.shape), generator=gen,
+                              device=dev)
+            positions = metric.sample_position({k: v[None] for k, v in qmap.items()}, eps)
+        setup_s = time.perf_counter() - t0
 
-    run_s, extra, dev_res = _run_mnist_nuts_batched(args, model, metric, qmap, X, y, gen)
-    acc = float((model.predict(dev_res["pm"], X) == yi).to(torch.float32).mean())
-    cal = calibration_report(dev_res["pp"], yi)
-    agg = dev_res["agg"]
-    agg["diag_s"] = round(dev_res["diag_s"], 2)
+    if metric is not None and not args.per_chain_nuts:
+        # the default: lockstep chain-batched NUTS on the fused value+grad,
+        # one pass over the data per leaf for all chains
+        run_s, extra, dev_res = _run_mnist_nuts_batched(args, model, metric, qmap, X, y, gen)
+        pm, pp, agg = dev_res["pm"], dev_res["pp"], dev_res["agg"]
+        agg["diag_s"] = round(dev_res["diag_s"], 2)
+    else:
+        # the per-chain kernel on the plain (autograd) value+grad, never the
+        # fused kernel: the slow cross-check of the default path
+        logdensity = model.make_logdensity(batch=(X, y))
+        kernel = nuts.build_kernel(logdensity, max_tree_depth=args.max_depth, metric=metric)
+        draws, run_s = _run_chains(args, lambda p: nuts.init(p, logdensity), kernel,
+                                   positions, gen, adapt_mass=adapt_mass)
+        extra = {"sampler": "per-chain-nuts"}
+        pm = {k: v.mean(dim=(0, 1)) for k, v in draws.items()}
+        pp = posterior_predictive_probs(lambda p, x: model.predict(p, x, prob=True), draws, X,
+                                        max_draws=32)
+        agg = _save_and_summarize(draws, run_s)
+    acc = float((model.predict(pm, X) == yi).to(torch.float32).mean())
+    cal = calibration_report(pp, yi)
     agg["run_s"] = round(run_s, 2)
     agg.update(extra)
     agg.update({"workload": "mnist-nuts", "train_accuracy": acc,
-                "metric": "kron-gauss-newton",
+                "metric": "diag" if args.diag_mass else "kron-gauss-newton",
                 "setup_s": round(setup_s, 2),
                 "setup_from_cache": setup_cached,
                 "dataset": provenance,
                 "predictive_accuracy": cal["accuracy"],
                 "predictive_ece": round(cal["ece"], 4),
                 "predictive_nll": round(cal["nll"], 4),
-                "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"})
+                "device": _device_name(dev)})
     print(json.dumps(agg), flush=True)
     return agg
 
@@ -209,6 +336,20 @@ def main(argv=None):
     parser = argparse.ArgumentParser(prog="dhmc-torch",
                                      description="PyTorch/CUDA Bayesian MCMC workloads")
     sub = parser.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("mvn-hmc")
+    _common(p)
+    p.add_argument("--dim", type=int, default=2)
+    p.add_argument("--num-steps", type=int, default=16)
+    p.add_argument("--nuts", action="store_true")
+    p.set_defaults(fn=cmd_mvn_hmc)
+
+    p = sub.add_parser("logistic-hmc")
+    _common(p)
+    p.add_argument("--n-data", type=int, default=1000)
+    p.add_argument("--alpha", type=float, default=0.1)
+    p.add_argument("--num-steps", type=int, default=16)
+    p.set_defaults(fn=cmd_logistic_hmc, chains=32)
 
     p = sub.add_parser("mnist-nuts")
     _common(p)
@@ -220,7 +361,9 @@ def main(argv=None):
     p.add_argument("--alpha", type=float, default=1.0)
     p.add_argument("--max-depth", type=int, default=6)
     p.add_argument("--diag-mass", action="store_true",
-                   help="plain diagonal-mass NUTS (not ported yet)")
+                   help="disable the Kronecker Gauss-Newton metric (plain "
+                        "diagonal-mass NUTS with Welford mass adaptation; will not "
+                        "mix at MNIST scale)")
     p.add_argument("--target-accept", type=float, default=0.65,
                    help="warmup acceptance target.  0.65 is robust across datasets; "
                         "on the MNIST-scale whitened posterior 0.5 is the ESS/s "
@@ -228,7 +371,10 @@ def main(argv=None):
     p.add_argument("--chain-shards", type=int, default=1,
                    help=">1: lay the chain axis across devices (not ported yet)")
     p.add_argument("--per-chain-nuts", action="store_true",
-                   help="the per-chain NUTS kernel (not ported yet)")
+                   help="use the per-chain NUTS kernel on the plain value+grad "
+                        "instead of the default lockstep chain-batched kernel on "
+                        "the fused one (much slower per draw at MNIST scale; "
+                        "escape hatch / cross-check)")
     p.set_defaults(fn=cmd_mnist_nuts)
 
     args = parser.parse_args(argv)

@@ -1,4 +1,8 @@
-"""Dataset loaders for the headline workload.
+"""Dataset loaders.
+
+Every generator draws from a numpy ``RandomState`` in the JAX package's
+order, so the arrays are byte-identical to that package's; they come back as
+numpy.  ``blobs`` is the 2-D binary problem of config 2.
 
 ``mnist()`` generates the deterministic MNIST-shaped synthetic training set,
 byte-identical to the JAX package's generator (numpy ``RandomState``).  The
@@ -14,6 +18,42 @@ import os
 from typing import Tuple
 
 import numpy as np
+
+
+def blobs(n: int = 1000, d: int = 2, sep: float = 3.0, seed: int = 0,
+          test_fraction: float = 0.2):
+    """Two separable Gaussian blobs (binary): ((X_train, y_train), (X_test,
+    y_test)), float32."""
+    rng = np.random.RandomState(seed)
+    n2 = n // 2
+    X = np.concatenate([
+        rng.randn(n2, d) - sep / 2.0,
+        rng.randn(n - n2, d) + sep / 2.0,
+    ]).astype(np.float32)
+    y = np.concatenate([np.zeros(n2), np.ones(n - n2)]).astype(np.float32)
+    perm = rng.permutation(n)
+    X, y = X[perm], y[perm]
+    n_test = int(n * test_fraction)
+    return (X[n_test:], y[n_test:]), (X[:n_test], y[:n_test])
+
+
+def synthetic_classification(n: int, d: int, k: int, seed: int = 0,
+                             noise: float = 0.5) -> Tuple[np.ndarray, np.ndarray]:
+    """Linearly separable-ish K-class data from a ground-truth softmax model."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, d).astype(np.float32)
+    W = rng.randn(d, k).astype(np.float32) / np.sqrt(d)
+    logits = X @ W + noise * rng.randn(n, k).astype(np.float32)
+    return X, logits.argmax(-1).astype(np.int32)
+
+
+def train_test_split(X, y, test_fraction: float = 0.2, seed: int = 0):
+    """((X_train, y_train), (X_test, y_test)) by a seeded permutation."""
+    n = X.shape[0]
+    perm = np.random.RandomState(seed).permutation(n)
+    n_test = int(n * test_fraction)
+    test_idx, train_idx = perm[:n_test], perm[n_test:]
+    return (X[train_idx], y[train_idx]), (X[test_idx], y[test_idx])
 
 
 def mnist_provenance() -> str:

@@ -1,6 +1,10 @@
 """Models."""
 
 from .base import Model
+from .gaussian import Gaussian
+from .logistic import Logistic
+from .mvn_gaussian import MVNGaussian
+from .poisson import Poisson
 from .softmax import Softmax
 
-__all__ = ["Model", "Softmax"]
+__all__ = ["Model", "Gaussian", "MVNGaussian", "Logistic", "Softmax", "Poisson"]

@@ -1,8 +1,11 @@
 """Bayesian softmax (multinomial logistic) regression.
 
-Params: {'weights': (D, K), 'bias': (K,)}; batch: (X (B, D), y (B, K) one-hot).
-The chain-batched value+grad (``make_fused_value_and_grad``) takes
-{'weights': (C, D, K), 'bias': (C, K)} and goes through ops.softmax_glm.
+Params: {'weights': (D, K), 'bias': (K,)}, or chain-batched {'weights':
+(C, D, K), 'bias': (C, K)}; batch: (X (B, D), y (B, K) one-hot).  The log
+density broadcasts over the chain axis (one GEMM for all chains), which is
+what the per-chain samplers differentiate by autograd.  The fused
+chain-batched value+grad (``make_fused_value_and_grad``) goes through
+ops.softmax_glm instead.
 """
 
 from __future__ import annotations
@@ -15,16 +18,17 @@ from .base import Model, Params
 
 
 class Softmax(Model):
+    chain_batched = True
+
     def __init__(self, dim: int, n_classes: int, alpha: float = 1e-2):
         self.dim = dim
         self.n_classes = n_classes
         self.alpha = float(alpha)
 
     def log_prior(self, params: Params) -> torch.Tensor:
-        """Gaussian prior over ONE chain's parameters (the chain-batched
-        prior is ops.softmax_glm.log_prior_batched)."""
-        k = sum(p.numel() for p in params.values())
-        sq = sum((p * p).sum() for p in params.values())
+        """Gaussian prior, per chain."""
+        k = (self.dim + 1) * self.n_classes
+        sq = (params["weights"] ** 2).sum(dim=(-2, -1)) + (params["bias"] ** 2).sum(dim=-1)
         return 0.5 * k * math.log(self.alpha / (2.0 * math.pi)) - 0.5 * self.alpha * sq
 
     def logits(self, params: Params, X: torch.Tensor) -> torch.Tensor:
@@ -32,7 +36,13 @@ class Softmax(Model):
 
     def log_likelihood(self, params: Params, batch) -> torch.Tensor:
         X, y = batch
-        return (y * torch.log_softmax(self.logits(params, X), dim=-1)).sum()
+        W, b = params["weights"], params["bias"]
+        if W.dim() == 2:
+            return (y * torch.log_softmax(self.logits(params, X), dim=-1)).sum()
+        # all chains in one GEMM: X (B, D) @ W as (D, C K), logits kept (B, C, K)
+        c, d, k = W.shape
+        z = (X @ W.permute(1, 0, 2).reshape(d, c * k)).reshape(-1, c, k) + b
+        return (y[:, None, :] * torch.log_softmax(z, dim=-1)).sum(dim=(0, 2))
 
     def init_params(self, generator: torch.Generator, device) -> Params:
         w = torch.randn((self.dim, self.n_classes), generator=generator,

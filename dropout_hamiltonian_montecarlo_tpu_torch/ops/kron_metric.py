@@ -26,8 +26,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .metrics import Metric
 from .softmax_glm import split_bf16_input
-from .tree import Params, tree_add
+from .tree import Params, tree_add, tree_randn_like
 
 
 def gram_eigh_augmented(X: torch.Tensor):
@@ -89,6 +90,15 @@ class KronMetric:
     def from_eigen(self, e: torch.Tensor) -> Params:
         return self.unpack(self.U_g @ e @ self.U_a.T)
 
+    def sample_momentum(self, position: Params, generator: torch.Generator) -> Params:
+        """p ~ N(0, M), one draw per leading (chain) index of ``position``."""
+        if generator is None:
+            raise ValueError("a random draw needs an explicit torch.Generator")
+        shape = position["bias"].shape[:-1] + tuple(self.d_aug.shape)
+        eps = torch.randn(shape, generator=generator, dtype=torch.float32,
+                          device=self.d_aug.device)
+        return self.from_eigen(self.sqrt_d * eps)
+
     def kinetic_energy(self, momentum: Params) -> torch.Tensor:
         e = self.to_eigen(momentum)
         return 0.5 * (e * e / self.d_aug).sum(dim=(-2, -1))
@@ -108,6 +118,12 @@ class KronMetric:
         """dq = M^{-1/2} e."""
         return self.from_eigen(self.pack(e) / self.sqrt_d)
 
+    def whiten_transpose(self, g_e: Params) -> Params:
+        """The transpose of the linear map ``whiten``: carries a gradient in
+        whitened space back to parameter space,
+        g = unpack(U_g (sqrt_d * pack(g_e)) U_a^T)."""
+        return self.from_eigen(self.sqrt_d * self.pack(g_e))
+
     def unwhiten_transpose(self, g: Params) -> Params:
         """The transpose of the linear map ``unwhiten``: carries a gradient
         in parameter space to whitened space,
@@ -124,6 +140,36 @@ def natural_gradient_map(grad_fn, metric: KronMetric, init_params: Params,
         nat = metric.kinetic_grad(grad_fn(q))
         q = {k: q[k] + learning_rate * nat[k] for k in q}
     return q
+
+
+def logistic_gauss_newton_metric(X: torch.Tensor, alpha: float,
+                                 likelihood_scale: float = 1.0) -> Metric:
+    """The Gauss-Newton metric for logistic regression params {'weights':
+    (C, D), 'bias': (C,)}: H ~ 0.25 X^T X + alpha I (0.25 is the largest
+    Bernoulli variance).  The eigendecomposition runs in float64 on the host."""
+    Xn = X.detach().double().cpu().numpy()
+    n = Xn.shape[0]
+    s_f, U_f = np.linalg.eigh(0.25 * (Xn.T @ Xn))
+    s_f = np.maximum(s_f, 0.0)
+    f32 = dict(dtype=torch.float32, device=X.device)
+    U_f = torch.as_tensor(U_f, **f32)
+    d_w = torch.as_tensor(likelihood_scale * s_f + alpha, **f32)
+    d_b = float(np.float32(likelihood_scale * 0.25 * n + alpha))
+
+    def sample_momentum(position: Params, generator: torch.Generator) -> Params:
+        eps = tree_randn_like(position, generator)
+        return {"weights": (torch.sqrt(d_w) * eps["weights"]) @ U_f.T,
+                "bias": math.sqrt(d_b) * eps["bias"]}
+
+    def kinetic_energy(momentum: Params) -> torch.Tensor:
+        e = momentum["weights"] @ U_f
+        return 0.5 * ((e * e / d_w).sum(dim=-1) + momentum["bias"] ** 2 / d_b)
+
+    def kinetic_grad(momentum: Params) -> Params:
+        e = momentum["weights"] @ U_f
+        return {"weights": (e / d_w) @ U_f.T, "bias": momentum["bias"] / d_b}
+
+    return Metric(sample_momentum, kinetic_energy, kinetic_grad)
 
 
 def _setup_path(cache_dir, X, y_onehot, alpha, newton_steps, provenance, seed):

@@ -19,13 +19,59 @@ def tree_add(a: Params, b: Params) -> Params:
     return {k: a[k] + b[k] for k in a}
 
 
+def tree_sub(a: Params, b: Params) -> Params:
+    """a - b, leafwise."""
+    return {k: a[k] - b[k] for k in a}
+
+
+def tree_scale(a: Params, s) -> Params:
+    """s * a for a scalar s, leafwise."""
+    return {k: s * v for k, v in a.items()}
+
+
 def tree_mul(a: Params, b: Params) -> Params:
     """a * b, leafwise (Hadamard)."""
     return {k: a[k] * b[k] for k in a}
 
 
+def tree_axpy(s, x: Params, y: Params) -> Params:
+    """y + s * x for a scalar s, leafwise."""
+    return {k: y[k] + s * x[k] for k in x}
+
+
+def tree_dot(a: Params, b: Params) -> torch.Tensor:
+    """Full inner product over all leaves (a 0-d tensor); the per-chain form
+    is ``tree_batched_dot``."""
+    return sum((a[k] * b[k]).sum() for k in a)
+
+
+def tree_zeros_like(a: Params) -> Params:
+    return {k: torch.zeros_like(v) for k, v in a.items()}
+
+
 def tree_ones_like(a: Params) -> Params:
     return {k: torch.ones_like(v) for k, v in a.items()}
+
+
+def tree_size(a: Params) -> int:
+    """Total number of scalars in the dict."""
+    return sum(v.numel() for v in a.values())
+
+
+def tree_ravel(a: Params):
+    """One chain's dict -> (1-D vector, unravel), leaves in sorted key order
+    (the order of ``jax.flatten_util.ravel_pytree``); the chain-batched form
+    is ``tree_batch_ravel``."""
+    mat, unravel = tree_batch_ravel({k: v[None] for k, v in a.items()})
+    return mat[0], lambda z: {k: v[0] for k, v in unravel(z[None]).items()}
+
+
+def tree_where(pred, a, b):
+    """Leafwise select on one bool ``pred`` (a scalar, or anything that
+    broadcasts against every leaf); dicts or tensors."""
+    if isinstance(a, dict):
+        return {k: torch.where(pred, a[k], b[k]) for k in a}
+    return torch.where(pred, a, b)
 
 
 def tree_randn_like(a: Params, generator: Optional[torch.Generator]) -> Params:
@@ -47,9 +93,12 @@ def tree_axpy_bcast(s: torch.Tensor, x: Params, y: Params) -> Params:
 
 
 def tree_where_bcast(pred: torch.Tensor, a, b):
-    """Per-chain select over (C, ...) leaves; ``a``/``b`` may be dicts or tensors."""
+    """Per-chain select over (C, ...) leaves; ``a``/``b`` may be tensors,
+    dicts, or NamedTuples of these (a sampler state)."""
     if isinstance(a, dict):
         return {k: torch.where(_bcast(pred, a[k]), a[k], b[k]) for k in a}
+    if isinstance(a, tuple):
+        return type(a)(*(tree_where_bcast(pred, x, y) for x, y in zip(a, b)))
     return torch.where(_bcast(pred, a), a, b)
 
 

@@ -1,8 +1,10 @@
-"""The port's ``mnist-nuts`` CLI on the CPU: the config-3 pipeline on real
-pixels (scikit-learn's digits) held to the assertions of the JAX package's
-tests/test_nuts_batched.py::test_mnist_nuts_cli_digits_batched, its JSON
-keys against the JAX CLI's batched path, and the options that are not
-ported yet.  Imports no jax."""
+"""The port's CLI on the CPU: the config-3 pipeline on real pixels
+(scikit-learn's digits) held to the assertions of the JAX package's
+tests/test_nuts_batched.py::test_mnist_nuts_cli_digits_batched, configs 1 and
+2 and the per-chain ``mnist-nuts`` modes at small size, every JSON line's keys
+against the JAX CLI's line of the same subcommand (without ``compile_s``:
+the port compiles nothing), and the options that are not ported yet.
+Imports no jax."""
 
 import contextlib
 import io
@@ -27,6 +29,18 @@ JAX_KEYS = {
     "divergent_frac", "workload", "train_accuracy", "metric", "setup_s",
     "setup_from_cache", "dataset", "predictive_accuracy", "predictive_ece",
     "predictive_nll",
+}
+
+
+# the summarize() aggregate with elapsed seconds (JAX cli.py:141-143)
+AGG_KEYS = {"min_ess", "median_ess", "max_rhat", "min_ess_per_sec", "median_ess_per_sec"}
+# mvn-hmc (cli.py:170-175), logistic-hmc (:203-208), per-chain mnist-nuts
+# (:547, :572-584)
+MVN_KEYS = AGG_KEYS | {"workload", "run_s"}
+LOGISTIC_KEYS = MVN_KEYS | {"test_accuracy"}
+PER_CHAIN_KEYS = AGG_KEYS | {
+    "run_s", "sampler", "workload", "train_accuracy", "metric", "setup_s", "setup_from_cache",
+    "dataset", "predictive_accuracy", "predictive_ece", "predictive_nll",
 }
 
 
@@ -63,17 +77,64 @@ def test_mnist_nuts_cli_digits_on_cpu(one_thread):
     assert math.isfinite(agg["max_rhat"]) and 0 < agg["min_ess"] <= agg["median_ess"] <= 4 * 30
 
 
+@pytest.mark.parametrize("extra", [[], ["--nuts"]], ids=["hmc", "nuts"])
+def test_mvn_hmc_cli_on_cpu(one_thread, extra):
+    agg = _run(["mvn-hmc", "--chains", "4", "--samples", "300", "--warmup", "200",
+                "--device", "cpu"] + extra)
+    assert set(agg) == MVN_KEYS | {"device"}
+    assert agg["workload"] == "mvn-hmc" and agg["device"] == "cpu"
+    assert agg["max_rhat"] < 1.05
+    assert 300 < agg["min_ess"] <= agg["median_ess"]
+    assert agg["min_ess_per_sec"] == pytest.approx(agg["min_ess"] / agg["run_s"], rel=0.05)
+
+
+def test_logistic_hmc_cli_on_cpu(one_thread):
+    agg = _run(["logistic-hmc", "--chains", "8", "--samples", "200", "--warmup", "150",
+                "--device", "cpu"])
+    assert set(agg) == LOGISTIC_KEYS | {"device"}
+    assert agg["workload"] == "logistic-hmc"
+    assert agg["test_accuracy"] >= 0.98
+    assert agg["max_rhat"] < 1.05 and agg["min_ess"] > 0.25 * 8 * 200
+
+
+@pytest.mark.parametrize("mode, metric", [("--per-chain-nuts", "kron-gauss-newton"),
+                                          ("--diag-mass", "diag")],
+                         ids=["per-chain-nuts", "diag-mass"])
+def test_mnist_nuts_per_chain_modes_on_cpu(one_thread, mode, metric):
+    """The two modes that run the per-chain kernel: with the Kronecker metric
+    passed as ``metric=`` the chains start from the Laplace draw and stay at
+    the mode's accuracy; with a diagonal mass they run (and need not mix)."""
+    agg = _run(["mnist-nuts", "--dataset", "digits", "--chains", "4", "--samples", "30",
+                "--warmup", "40", "--max-depth", "4", "--device", "cpu", mode])
+    assert set(agg) == PER_CHAIN_KEYS | {"device"}
+    assert agg["sampler"] == "per-chain-nuts" and agg["metric"] == metric
+    assert agg["dataset"] == "sklearn-digits" and agg["setup_from_cache"] is False
+    for key in ("min_ess", "median_ess", "max_rhat", "predictive_nll", "predictive_ece"):
+        assert math.isfinite(agg[key]), key
+    assert agg["train_accuracy"] > 0.9 and agg["predictive_accuracy"] > 0.9
+    if mode == "--per-chain-nuts":
+        assert agg["setup_s"] > 0 and agg["max_rhat"] < 1.5
+    else:
+        assert agg["setup_s"] == 0.0
+
+
+@pytest.mark.parametrize("sub", ["mvn-hmc", "logistic-hmc"])
+def test_small_configs_refuse_unported_options(sub):
+    with pytest.raises(NotImplementedError, match=r"--save: .*not ported yet \(ROADMAP slice 5\)"):
+        cli.main([sub, "--device", "cpu", "--save", "draws.h5"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main([sub])
+
+
 @pytest.mark.parametrize("extra, item", [
     (["--save", "draws.h5"], "slice 5"),
     (["--stream-chunk", "10"], "slice 5"),
     (["--checkpoint", "ck.npz"], "slice 5"),
     (["--resume"], "slice 5"),
     (["--chain-shards", "2"], "slice 5"),
-    (["--diag-mass"], "slice 3"),
-    (["--per-chain-nuts"], "slice 3"),
     (["--data", "mnist.h5"], "slice 5"),
-], ids=["save", "stream-chunk", "checkpoint", "resume", "chain-shards", "diag-mass",
-        "per-chain-nuts", "data"])
+], ids=["save", "stream-chunk", "checkpoint", "resume", "chain-shards", "data"])
 def test_cli_unported_options_raise(extra, item):
     with pytest.raises(NotImplementedError, match=f"not ported yet \\(ROADMAP {item}\\)"):
         cli.main(["mnist-nuts", "--device", "cpu"] + extra)

@@ -46,3 +46,29 @@ def test_digits_needs_no_sklearn(monkeypatch):
     X, y = datasets.digits()
     assert X.tobytes() == (ref.data / 16.0).astype(np.float32).tobytes()
     assert y.tobytes() == ref.target.astype(np.int32).tobytes()
+
+
+@pytest.mark.parametrize("kwargs", [{}, {"n": 301, "d": 3, "sep": 2.0, "seed": 5,
+                                         "test_fraction": 0.25}], ids=["default", "odd"])
+def test_blobs_are_byte_identical(kwargs):
+    (Xtr, ytr), (Xte, yte) = datasets.blobs(**kwargs)
+    (jXtr, jytr), (jXte, jyte) = jds.blobs(**kwargs)
+    for got, ref in ((Xtr, jXtr), (ytr, jytr), (Xte, jXte), (yte, jyte)):
+        assert got.dtype == np.float32
+        assert got.tobytes() == np.asarray(ref).tobytes()
+
+
+def test_synthetic_classification_is_byte_identical():
+    X, y = datasets.synthetic_classification(200, 6, 4, seed=3, noise=0.7)
+    jX, jy = jds.synthetic_classification(200, 6, 4, seed=3, noise=0.7)
+    assert X.tobytes() == np.asarray(jX).tobytes()
+    assert y.dtype == np.int32 and y.tobytes() == np.asarray(jy).tobytes()
+
+
+def test_train_test_split_is_byte_identical():
+    X, y = datasets.synthetic_classification(100, 3, 2, seed=1)
+    (Xtr, ytr), (Xte, yte) = datasets.train_test_split(X, y, test_fraction=0.3, seed=4)
+    (jXtr, jytr), (jXte, jyte) = jds.train_test_split(X, y, test_fraction=0.3, seed=4)
+    assert Xte.shape[0] == 30 and Xtr.shape[0] == 70
+    for got, ref in ((Xtr, jXtr), (ytr, jytr), (Xte, jXte), (yte, jyte)):
+        assert got.tobytes() == np.asarray(ref).tobytes()
