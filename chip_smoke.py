@@ -25,22 +25,46 @@ Phases, one line each (any failure exits non-zero):
      predictive accuracy above 0.85);
   7. ChEES: the HMC bench with ChEES warmup, 50 warmup steps and 50 draws;
      checks (finite step, 1 <= L <= 64, finite ESS) and exact launch counts;
-  8. configs 1-2 at full size through the CLI: ``mvn-hmc`` (4 chains x 1000
-     draws, HMC and ``--nuts``: mean within 0.1 and covariance within 0.15
-     of the target, min ESS > 2000, max R-hat < 1.01, acceptance in (0.6,
-     0.99), zero divergences), ``logistic-hmc`` (32 x 1000: test accuracy >=
-     0.98, max R-hat < 1.01, min ESS >= half the draws), and random-walk
-     Metropolis on the same 2-D MVN through ``run_warmup_scale`` (moments
-     within 0.15); draws/s and the device's busy share of each;
+  8. configs 1-2 through the CLI: ``mvn-hmc`` (HMC, 4 chains x 1000 draws:
+     mean within 0.1 and covariance within 0.15 of the target, min ESS >
+     2000, max R-hat < 1.01, acceptance in (0.6, 0.99), zero divergences),
+     and, cut to 300 draws with the bounds scaled to the draw count,
+     ``mvn-hmc --nuts`` (4 x 300: min ESS >= half the draws, max R-hat <
+     1.02, the moment bounds widened by sqrt(1000 / 300)) and
+     ``logistic-hmc`` (32 x 300: test accuracy >= 0.98, max R-hat < 1.02,
+     min ESS >= half the draws), and random-walk Metropolis on the same 2-D
+     MVN through ``run_warmup_scale`` (moments within 0.15); draws/s and the
+     device's busy share of each;
   9. the per-chain ``mnist-nuts`` modes on the synthetic MNIST (128 chains,
      depth cap 4, 30 warmup + 30 draws): ``--per-chain-nuts`` (finite R-hat,
      train and predictive accuracy > 0.85, zero divergences, <= 15 leaves)
      and ``--diag-mass`` (finite outputs, adapted inverse mass off the
      identity).  Both run the plain autograd value+grad: the fused kernel is
-     launched no time.
-Phases 4-9 each count the kernel's launches from zero just before the run
+     launched no time;
+ 10. config 4 at full width through the CLI: ``mnist-mlp-sgmcmc`` (the
+     784-256-256-10 dropout MLP, 268,810 parameters, synthetic MNIST 60000 x
+     784, 16 chains, batch 1024, 3000 SGD steps, then 1000 burn-in + 2000
+     steps, every 20th kept) with ``--algorithm sghmc`` (step 1e-5) and
+     ``--algorithm sgld --step-size 1e-6``: finite outputs, dropout in the
+     potential, train / predictive / MC-dropout accuracy >= 0.95, predictive
+     NLL <= 0.30, log-density max R-hat < 1.2, SGHMC's predictive-trace
+     median ESS above SGLD's; and at 60 steps the same seed twice gives
+     bit-identical draws while ``--p-drop 0`` gives other ones;
+ 11. config 6: ``mnist-vi --model softmax`` (3000 steps) and ``--model mlp
+     --init-log-std -6 --learning-rate 3e-3 --num-steps 4000``: predictive
+     accuracy >= 0.95, NLL <= 0.32, last ELBO above first;
+ 12. config 5: ``plantvillage-smc --particles 256 --n-data 5000`` (HMC
+     mutation) and ``--mutation sghmc --batch-size 1024 --step-size 1e-3
+     --mcmc-steps 40``: lambda reaches 1 in 10..100 stages, predictive
+     accuracy >= 0.99, finite log evidence; under HMC every stage's
+     acceptance in (0.4, 1.0], the final step size above the first, and the
+     log evidence within 10% of -738.2 (the JAX package's recorded run).
+Phases 10-12 print seconds, steps/s and the device's busy share, and run no
+fused kernel (the JAX package computes these paths outside any Pallas
+kernel).  Every phase prints its seconds.
+Phases 4-12 each count the kernel's launches from zero just before the run
 and read them just after.  Then one JSON line describing each kernel (its
-launches summed over phases 4-9, its bound from the bytes and operations of
+launches summed over phases 4-12, its bound from the bytes and operations of
 the bench-shape call; ``library_ms`` is null because no single PyTorch call
 computes the function: the plain version is two matmuls and a log_softmax),
 and last:
@@ -58,6 +82,9 @@ import time
 from pathlib import Path
 
 WARMUP, DRAWS, CHAINS, L = 50, 100, 128, 10
+SMALL_DRAWS = 300        # mvn-hmc --nuts and logistic-hmc, cut from 1000 draws
+SGMCMC_CHAINS, SMC_PARTICLES = 16, 256
+SMC_LOG_EVIDENCE = -738.2   # the JAX package's recorded config-5 run (RESULTS.md)
 NUTS_WARMUP, NUTS_DRAWS, NUTS_DEPTH = 50, 50, 4
 PER_CHAIN_WARMUP, PER_CHAIN_DRAWS = 30, 30
 # NVIDIA's data sheet for the H100 SXM: dense bf16 tensor-core rate (the
@@ -144,31 +171,73 @@ def check_finite(det: dict, keys) -> None:
             fail(f"{key} is not finite: {det[key]}")
 
 
-def run_cli(torch, cli, sampling, argv):
-    """One CLI run with its JSON line parsed; the kernel, the Posterior and
-    the wall seconds of its ``sample_posterior`` call are captured on the
-    way, for the checks the JSON line has no key for."""
+def run_cli(torch, cli, module, argv, name="sample_posterior"):
+    """One CLI run with its JSON line parsed; the arguments, the result and
+    the wall seconds of its call to ``module.name`` (the library function
+    under the subcommand) are captured on the way, for the checks the JSON
+    line has no key for."""
     seen = {}
-    inner = sampling.sample_posterior
+    inner = getattr(module, name)
 
-    def capture(init_fn, kernel, *args, **kwargs):
+    def capture(*args, **kwargs):
         t0 = time.perf_counter()
-        post = inner(init_fn, kernel, *args, **kwargs)
+        result = inner(*args, **kwargs)
         torch.cuda.synchronize()
-        seen.update(kernel=kernel, post=post, generator=kwargs["generator"],
+        seen.update(args=args, kwargs=kwargs, result=result,
                     seconds=time.perf_counter() - t0)
-        return post
+        if name == "sample_posterior":
+            seen.update(kernel=args[1], post=result, generator=kwargs["generator"])
+        return result
 
-    sampling.sample_posterior = capture
+    setattr(module, name, capture)
     out = io.StringIO()
     try:
         with contextlib.redirect_stdout(out):
             cli.main(argv)
     finally:
-        sampling.sample_posterior = inner
+        setattr(module, name, inner)
     torch.cuda.synchronize()
     line = out.getvalue().strip().splitlines()[-1]
     return line, json.loads(line), seen
+
+
+def rounded(x, digits=4):
+    return None if x is None else round(x, digits)
+
+
+def smc_round(torch, sgmcmc, mutation, state, info, log_prior, log_lik, kw):
+    """One mutation round of a finished tempered-SMC run, at lambda = 1 on its
+    final particles with its last step size: the step whose busy share is
+    read (a stage is ``num_mcmc_steps`` of them, after one init)."""
+    n = state.log_weights.shape[0]
+    gen = kw["generator"]
+    eps = info.stage_step_size[int(info.num_stages) - 1]
+    if mutation == "hmc":
+        def posterior(p):
+            return log_prior(p) + log_lik(p)
+
+        posterior.chain_batched = True
+        kernel = kw["kernel_builder"](posterior)
+        start = kw["init_builder"](posterior)(state.particles)
+        inv_mass = {k: torch.ones_like(v) for k, v in state.particles.items()}
+        return lambda: kernel(start, eps.expand(n), inv_mass, generator=gen)
+
+    data, batch_size = kw["data"], kw["batch_size"]
+    scale = data[0].shape[0] / batch_size
+
+    def tempered(p, b):
+        return log_prior(p) + scale * kw["log_likelihood_batch_fn"](p, b)
+
+    tempered.chain_batched = True
+    kernel = sgmcmc.build_sghmc_kernel(tempered)
+    start = sgmcmc.sghmc_init(state.particles)
+
+    def step():
+        idx = torch.randint(0, data[0].shape[0], (batch_size,), generator=gen,
+                            device=data[0].device)
+        kernel(start, tuple(d[idx] for d in data), eps, generator=gen)
+
+    return step
 
 
 def busy_share(torch, step, n):
@@ -195,7 +264,7 @@ def busy_share(torch, step, n):
     return wall / n * 1e3, (device_us / 1e6 / wall if device_us else None)
 
 
-def draw_rate(torch, seen, steps, n=20):
+def draw_rate(torch, seen, steps, n=10):
     """Draws/s of a captured run (all chains, warmup steps included) and the
     busy share of ``n`` more steps of its kernel from its final state."""
     post = seen["post"]
@@ -227,13 +296,27 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
     from dropout_hamiltonian_montecarlo_tpu_torch import bench, cli, full_f32_precision
-    from dropout_hamiltonian_montecarlo_tpu_torch.inference import metropolis, sampling
+    from dropout_hamiltonian_montecarlo_tpu_torch.inference import (metropolis, sampling, sgmcmc,
+                                                                    smc, vi)
+    from dropout_hamiltonian_montecarlo_tpu_torch.io import datasets
     from dropout_hamiltonian_montecarlo_tpu_torch.models import MVNGaussian
     from dropout_hamiltonian_montecarlo_tpu_torch.ops import softmax_glm as sg
     from dropout_hamiltonian_montecarlo_tpu_torch.ops.cuda_build import BUILD_INFO, find_nvcc
     from dropout_hamiltonian_montecarlo_tpu_torch.utils.profiling import cuda_time_ms
 
     full_f32_precision()
+    clock = {"t": time.perf_counter()}
+
+    def phase_seconds(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        print(f"{name} took {now - clock['t']:.1f}s", flush=True)
+        clock["t"] = now
+
+    # the synthetic MNIST is a pure function of nothing: generate it once for
+    # all the phases that load it
+    mnist_arrays = datasets.mnist()
+    datasets.mnist = lambda: mnist_arrays
 
     # ---- 1. device ------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
@@ -256,6 +339,7 @@ def main() -> None:
           f"ptxas: {' | '.join(ptxas)}", flush=True)
     if hgmma == 0:
         fail("the kernel library holds no HGMMA (wgmma) instruction")
+    phase_seconds("phases 1-2")
 
     # ---- 3. kernel against plain ---------------------------------------
     alpha = 1.0
@@ -303,6 +387,7 @@ def main() -> None:
           f"({2.5 * flop_ms:.4f} ms) and 4 grad-only ({2 * flop_ms:.4f} ms)", flush=True)
     del Xb, Yb, Wb, bb, split, call
     torch.cuda.empty_cache()
+    phase_seconds("phase 3")
 
     # ---- 4. main path ---------------------------------------------------
     sg.reset_launch_counts()
@@ -331,6 +416,8 @@ def main() -> None:
         for key in total:
             total[key] += c[key]
 
+    phase_seconds("phase 4")
+
     # ---- 5. NUTS bench path -----------------------------------------------
     sg.reset_launch_counts()
     result = bench.run(device="cuda", chains=CHAINS, warmup=NUTS_WARMUP, draws=NUTS_DRAWS,
@@ -355,6 +442,7 @@ def main() -> None:
     if counts != want:
         fail(f"NUTS kernel launches {counts} != 2 inits + the lockstep leaves {want}")
     print(f"phase 5 launch counts: {counts} (expected {want})", flush=True)
+    phase_seconds("phase 5")
 
     # ---- 6. CLI -------------------------------------------------------------
     sg.reset_launch_counts()
@@ -375,6 +463,7 @@ def main() -> None:
     if counts["grad"] != 0 or counts["value_and_grad"] < NUTS_WARMUP + NUTS_DRAWS:
         fail(f"CLI kernel launches {counts}")
     print(f"phase 6 launch counts: {counts}", flush=True)
+    phase_seconds("phase 6")
 
     # ---- 7. ChEES -----------------------------------------------------------
     sg.reset_launch_counts()
@@ -394,33 +483,40 @@ def main() -> None:
     if counts != want:
         fail(f"ChEES kernel launches {counts} != the path's calls {want}")
     print(f"phase 7 launch counts: {counts} (expected {want})", flush=True)
+    phase_seconds("phase 7")
 
     # ---- 8. configs 1-2 through the CLI, Metropolis --------------------------
     sg.reset_launch_counts()
     target_cov = torch.tensor([[1.5, 0.5], [0.5, 1.5]])
-    for extra in ([], ["--nuts"]):
+    widen = math.sqrt(1000 / SMALL_DRAWS)     # a moment's error goes as 1/sqrt(draws)
+    for extra, draws, ess_floor, rhat_cap, mean_atol, cov_atol in (
+            ([], 1000, 2000, 1.01, 0.1, 0.15),
+            (["--nuts"], SMALL_DRAWS, 0.5 * 4 * SMALL_DRAWS, 1.02, 0.1 * widen, 0.15 * widen)):
         line, agg, seen = run_cli(torch, cli, sampling,
-                                  ["mvn-hmc", "--chains", "4", "--samples", "1000"] + extra)
+                                  ["mvn-hmc", "--chains", "4", "--samples", str(draws)] + extra)
         post = seen["post"]
-        rate = draw_rate(torch, seen, 300 + 1000)
+        rate = draw_rate(torch, seen, 300 + draws)
         acc = float(post.infos.acceptance_prob.mean())
         label = "mvn-hmc " + " ".join(extra)
         print(f"phase 8 {label}: {line}; acceptance {acc:.4f}, leapfrog steps per draw "
               f"{float(post.infos.num_integration_steps.float().mean()):.2f}; "
               + json.dumps(rate), flush=True)
-        check_moments(label, post.positions["x"], 0.0, target_cov.numpy(), 0.1, 0.15)
-        if not agg["min_ess"] > 2000 or not agg["max_rhat"] < 1.01:
-            fail(f"{label}: min ESS {agg['min_ess']} <= 2000 or max R-hat {agg['max_rhat']}")
+        check_moments(label, post.positions["x"], 0.0, target_cov.numpy(), mean_atol, cov_atol)
+        if not agg["min_ess"] > ess_floor or not agg["max_rhat"] < rhat_cap:
+            fail(f"{label}: min ESS {agg['min_ess']} <= {ess_floor} or max R-hat "
+                 f"{agg['max_rhat']} >= {rhat_cap}")
         if not 0.6 < acc < 0.99 or bool(post.infos.is_divergent.any()):
             fail(f"{label}: acceptance {acc} outside (0.6, 0.99) or a divergence")
+        phase_seconds(f"phase 8 {label}")
     line, agg, seen = run_cli(torch, cli, sampling,
-                              ["logistic-hmc", "--chains", "32", "--samples", "1000"])
+                              ["logistic-hmc", "--chains", "32", "--samples", str(SMALL_DRAWS)])
     print("phase 8 logistic-hmc: " + line + "; "
-          + json.dumps(draw_rate(torch, seen, 300 + 1000)), flush=True)
-    if (agg["test_accuracy"] < 0.98 or not agg["max_rhat"] < 1.01
-            or agg["min_ess"] < 0.5 * 32 * 1000):
+          + json.dumps(draw_rate(torch, seen, 300 + SMALL_DRAWS)), flush=True)
+    if (agg["test_accuracy"] < 0.98 or not agg["max_rhat"] < 1.02
+            or agg["min_ess"] < 0.5 * 32 * SMALL_DRAWS):
         fail(f"logistic-hmc: accuracy {agg['test_accuracy']}, max R-hat {agg['max_rhat']}, "
              f"min ESS {agg['min_ess']}")
+    phase_seconds("phase 8 logistic-hmc")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     logdensity = MVNGaussian(torch.zeros(2, device="cuda"), target_cov.cuda()).make_logdensity()
@@ -448,6 +544,7 @@ def main() -> None:
     add(counts)
     if any(counts.values()):
         fail(f"phase 8 launched the fused kernel: {counts}")
+    phase_seconds("phase 8 metropolis")
 
     # ---- 9. the per-chain mnist-nuts modes -----------------------------------
     sg.reset_launch_counts()
@@ -483,6 +580,151 @@ def main() -> None:
     if any(counts.values()):
         fail(f"phase 9 launched the fused kernel: {counts}")
     print(f"phases 8-9 launch counts of the fused kernel: {counts} (expected zeros)",
+          flush=True)
+    phase_seconds("phase 9")
+
+    # ---- 10. config 4: the dropout MLP under SGHMC and SGLD ------------------
+    sg.reset_launch_counts()
+    sgmcmc_common = ["mnist-mlp-sgmcmc", "--chains", str(SGMCMC_CHAINS)]
+    traces = {}
+    for algorithm, extra in (("sghmc", []), ("sgld", ["--step-size", "1e-6"])):
+        line, agg, seen = run_cli(
+            torch, cli, sgmcmc, sgmcmc_common + ["--algorithm", algorithm, "--collect-every",
+                                                 "20"] + extra, name="run_sgmcmc_chains")
+        kernel, _, chains, data = seen["args"][:4]
+        kw, final_state = seen["kwargs"], seen["result"][0]
+        step_size = kw["step_size_schedule"](torch.zeros((), device="cuda"))
+
+        def step():
+            idx = torch.randint(0, data[0].shape[0], (chains, kw["batch_size"]),
+                                generator=kw["generator"], device="cuda")
+            kernel(final_state, tuple(d[idx] for d in data), step_size,
+                   generator=kw["generator"])
+
+        ms, busy = busy_share(torch, step, 20)
+        print(f"phase 10 mnist-mlp-{algorithm}: {line}; " + json.dumps({
+            "seconds": round(seen["seconds"], 2),
+            "chain_steps_per_s": round(chains * kw["num_steps"] / seen["seconds"], 1),
+            "ms_per_step": round(ms, 3), "busy_share": rounded(busy)}), flush=True)
+        check_finite(agg, ("predictive_ece", "predictive_nll", "min_ess", "median_ess",
+                           "max_rhat", "logdensity_ess", "logdensity_rhat",
+                           "predictive_trace_min_ess", "predictive_trace_median_ess",
+                           "predictive_trace_max_rhat", "steps_per_sec"))
+        positions = seen["result"][1]
+        if not all(bool(torch.isfinite(v).all()) for v in positions.values()):
+            fail(f"mnist-mlp-{algorithm}: a draw is not finite")
+        if positions["W1"].shape != (SGMCMC_CHAINS, 100, 784, 256) or agg["dropout"] is not True:
+            fail(f"mnist-mlp-{algorithm}: draws {tuple(positions['W1'].shape)}, dropout "
+                 f"{agg['dropout']}")
+        for key in ("train_accuracy", "predictive_accuracy", "mc_dropout_accuracy"):
+            if not agg[key] >= 0.95:
+                fail(f"mnist-mlp-{algorithm}: {key} {agg[key]} < 0.95")
+        if not agg["predictive_nll"] <= 0.30 or not agg["logdensity_rhat"] < 1.2:
+            fail(f"mnist-mlp-{algorithm}: predictive NLL {agg['predictive_nll']} > 0.30 or "
+                 f"log-density max R-hat {agg['logdensity_rhat']} >= 1.2")
+        traces[algorithm] = agg["predictive_trace_median_ess"]
+        del positions, seen, final_state, data
+        torch.cuda.empty_cache()
+        phase_seconds(f"phase 10 mnist-mlp-{algorithm}")
+    if not traces["sghmc"] > traces["sgld"]:
+        fail(f"predictive-trace median ESS: SGHMC {traces['sghmc']} <= SGLD {traces['sgld']}")
+
+    # the keyed-mask property: the masks are a function of the seeded stream
+    short = sgmcmc_common + ["--num-steps", "60", "--burnin-steps", "20", "--collect-every",
+                             "10", "--sgd-init-steps", "50"]
+    runs = [run_cli(torch, cli, sgmcmc, short + extra, name="run_sgmcmc_chains")[2]["result"][1]
+            for extra in ([], [], ["--p-drop", "0"])]
+    if not all(torch.equal(runs[0][k], runs[1][k]) for k in runs[0]):
+        fail("mnist-mlp-sgmcmc: the same seed twice gives different draws")
+    gap = max(float((runs[0][k] - runs[2][k]).abs().max()) for k in runs[0])
+    if not gap > 1e-6:
+        fail("mnist-mlp-sgmcmc: --p-drop 0 gives the draws of --p-drop 0.1")
+    print(f"phase 10 determinism: 16 chains x 4 draws bit-identical on a repeat; max |draw "
+          f"difference| to --p-drop 0: {gap:.3g}", flush=True)
+    del runs
+    torch.cuda.empty_cache()
+    counts = dict(sg.launch_counts)
+    add(counts)
+    if any(counts.values()):
+        fail(f"phase 10 launched the fused kernel: {counts}")
+    phase_seconds("phase 10 determinism")
+
+    # ---- 11. config 6: mean-field ADVI ---------------------------------------
+    sg.reset_launch_counts()
+    for model, extra in (("softmax", []),
+                         ("mlp", ["--init-log-std", "-6", "--learning-rate", "3e-3",
+                                  "--num-steps", "4000"])):
+        line, agg, seen = run_cli(torch, cli, vi, ["mnist-vi", "--model", model] + extra,
+                                  name="fit")
+        kernel, _, data, batch_size, num_steps = seen["args"]
+        final_state, gen = seen["result"][0], seen["kwargs"]["generator"]
+
+        def step():
+            idx = torch.randint(0, data[0].shape[0], (batch_size,), generator=gen, device="cuda")
+            kernel(final_state, tuple(d[idx] for d in data), generator=gen)
+
+        ms, busy = busy_share(torch, step, 20)
+        print(f"phase 11 mnist-vi-{model}: {line}; " + json.dumps({
+            "seconds": round(seen["seconds"], 2),
+            "steps_per_s": round(num_steps / seen["seconds"], 1), "ms_per_step": round(ms, 3),
+            "busy_share": rounded(busy)}), flush=True)
+        check_finite(agg, ("train_accuracy", "predictive_ece", "predictive_nll"))
+        first, last = agg["elbo_first_last"]
+        if (not agg["predictive_accuracy"] >= 0.95 or not agg["predictive_nll"] <= 0.32
+                or not last > first):
+            fail(f"mnist-vi-{model}: predictive accuracy {agg['predictive_accuracy']} < 0.95, "
+                 f"NLL {agg['predictive_nll']} > 0.32, or ELBO {first} -> {last} did not rise")
+        phase_seconds(f"phase 11 mnist-vi-{model}")
+    counts = dict(sg.launch_counts)
+    add(counts)
+    if any(counts.values()):
+        fail(f"phase 11 launched the fused kernel: {counts}")
+
+    # ---- 12. config 5: adaptive tempered SMC ---------------------------------
+    sg.reset_launch_counts()
+    smc_common = ["plantvillage-smc", "--particles", str(SMC_PARTICLES), "--n-data", "5000"]
+    for mutation, extra in (("hmc", []),
+                            ("sghmc", ["--mutation", "sghmc", "--batch-size", "1024",
+                                       "--step-size", "1e-3", "--mcmc-steps", "40"])):
+        line, agg, seen = run_cli(torch, cli, smc, smc_common + extra, name="run_tempered_smc")
+        state, info = seen["result"]
+        _, log_prior, log_lik = seen["args"]
+        kw = seen["kwargs"]
+        ms, busy = busy_share(torch, smc_round(torch, sgmcmc, mutation, state, info, log_prior,
+                                               log_lik, kw), 10)
+        rounds = agg["num_stages"] * int(kw["num_mcmc_steps"])
+        print(f"phase 12 plantvillage-smc {mutation}: {line}; " + json.dumps({
+            "seconds": round(seen["seconds"], 2),
+            "mutation_rounds_per_s": round(rounds / seen["seconds"], 1),
+            "particle_rounds_per_s": round(SMC_PARTICLES * rounds / seen["seconds"], 1),
+            "ms_per_round_at_lambda_1": round(ms, 3), "busy_share": rounded(busy),
+            "log_evidence_over_recorded": round(agg["log_evidence"] / SMC_LOG_EVIDENCE, 4)}),
+            flush=True)
+        check_finite(agg, ("log_evidence", "predictive_ece", "train_accuracy"))
+        if float(state.lmbda) != 1.0 or not 10 <= agg["num_stages"] <= 100:
+            fail(f"plantvillage-smc {mutation}: lambda {float(state.lmbda)} after "
+                 f"{agg['num_stages']} stages")
+        if not agg["predictive_accuracy"] >= 0.99:
+            fail(f"plantvillage-smc {mutation}: predictive accuracy "
+                 f"{agg['predictive_accuracy']} < 0.99")
+        if not all(bool(torch.isfinite(v).all()) for v in state.particles.values()):
+            fail(f"plantvillage-smc {mutation}: a particle is not finite")
+        if mutation == "hmc":
+            first, last = agg["step_size_first_last"]
+            if not 0.4 < agg["stage_acceptance_min"] <= agg["stage_acceptance_max"] <= 1.0:
+                fail(f"plantvillage-smc: stage acceptance {agg['stage_acceptance_min']} .. "
+                     f"{agg['stage_acceptance_max']} outside (0.4, 1.0]")
+            if not last > first:
+                fail(f"plantvillage-smc: step size {first} -> {last} did not grow")
+            if abs(agg["log_evidence"] / SMC_LOG_EVIDENCE - 1.0) > 0.10:
+                fail(f"plantvillage-smc: log evidence {agg['log_evidence']} is not within 10% "
+                     f"of {SMC_LOG_EVIDENCE}")
+        phase_seconds(f"phase 12 plantvillage-smc {mutation}")
+    counts = dict(sg.launch_counts)
+    add(counts)
+    if any(counts.values()):
+        fail(f"phase 12 launched the fused kernel: {counts}")
+    print(f"phases 10-12 launch counts of the fused kernel: {counts} (expected zeros)",
           flush=True)
 
     kernels = [

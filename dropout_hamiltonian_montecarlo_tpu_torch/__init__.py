@@ -4,9 +4,13 @@ The JAX package beside this one is the reference; this package imports torch
 and never jax.  Ported so far: the headline MNIST-softmax HMC path (see
 ``bench.py``) with the fused softmax-GLM value+grad as a hand-written CUDA
 kernel for Hopper (``csrc/softmax_glm.cu``), config 3 (lockstep
-chain-batched NUTS, ChEES, the diagnostics), and configs 1-2: the per-chain
-HMC, NUTS and Metropolis kernels, Stan window warmup, the small models and
-the ``mvn-hmc`` / ``logistic-hmc`` / ``mnist-nuts`` CLI.
+chain-batched NUTS, ChEES, the diagnostics), configs 1-2 (the per-chain HMC,
+NUTS and Metropolis kernels, Stan window warmup, the small models and the
+``mvn-hmc`` / ``logistic-hmc`` / ``mnist-nuts`` CLI), and configs 4-6 on one
+device: the dropout MLP with its masks inside the sampled potential, SGLD /
+SGHMC, momentum SGD, mean-field ADVI, tempered SMC and the
+``mnist-mlp-sgmcmc`` / ``mnist-vi`` / ``plantvillage-smc`` CLI.  The
+multi-device and file layers are still to port.
 
 **The chain axis.**  The JAX package writes a sampler for one chain and runs
 many under ``jax.vmap``.  PyTorch has no ``vmap`` over data-dependent Python

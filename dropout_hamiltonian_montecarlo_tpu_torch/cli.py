@@ -3,18 +3,25 @@
     python -m dropout_hamiltonian_montecarlo_tpu_torch.cli <subcommand> [options]
     dhmc-torch <subcommand> [options]
 
-  mvn-hmc       config 1: 2-D MVN target, multi-chain HMC (or --nuts)
-  logistic-hmc  config 2: Bayesian logistic regression on blobs, 32 chains
-  mnist-nuts    config 3: MNIST softmax, full-batch lockstep chain-batched NUTS
-                in the whitened Kronecker Gauss-Newton coordinates;
-                --per-chain-nuts runs the per-chain kernel with the Kronecker
-                metric, --diag-mass plain diagonal-mass NUTS
+  mvn-hmc           config 1: 2-D MVN target, multi-chain HMC (or --nuts)
+  logistic-hmc      config 2: Bayesian logistic regression on blobs, 32 chains
+  mnist-nuts        config 3: MNIST softmax, full-batch lockstep chain-batched
+                    NUTS in the whitened Kronecker Gauss-Newton coordinates;
+                    --per-chain-nuts runs the per-chain kernel with the
+                    Kronecker metric, --diag-mass plain diagonal-mass NUTS
+  mnist-mlp-sgmcmc  config 4: MNIST dropout MLP, minibatch SGLD / SGHMC with
+                    the dropout masks inside the sampled potential
+  plantvillage-smc  config 5: conv-feature softmax, adaptive tempered SMC
+                    (HMC or minibatch-SGHMC mutation)
+  mnist-vi          config 6: mean-field ADVI on the MNIST softmax or MLP
 
 Each prints one JSON summary line with the keys of the JAX package's
 ``dhmc-tpu`` subcommand of the same name plus ``"device"`` (no ``compile_s``:
 nothing is compiled).  The default device is cuda and the run fails without a
-card; ``--device cpu`` must be asked for by name.  ``mnist-mlp-sgmcmc``,
-``mnist-vi`` and ``plantvillage-smc`` are not ported yet.
+card; ``--device cpu`` must be asked for by name.  The multi-device and file
+options (``--chain-shards``, ``--data-shards``, ``--shard-particles``,
+``--save``, ``--data`` ...) raise ``NotImplementedError``: they wait for the
+parallel and file layers.
 """
 
 from __future__ import annotations
@@ -51,15 +58,20 @@ def _refuse_unported(args) -> None:
     """Options of the JAX CLI that the port does not run yet, each with its
     ROADMAP slice."""
     unported = [
-        (args.save is not None, "--save: HDF5 backends are not ported yet (ROADMAP slice 5)"),
-        (args.stream_chunk > 0,
+        (getattr(args, "save", None) is not None,
+         "--save: HDF5 backends are not ported yet (ROADMAP slice 5)"),
+        (getattr(args, "stream_chunk", 0) > 0,
          "--stream-chunk: HDF5 spooling is not ported yet (ROADMAP slice 5)"),
-        (args.checkpoint is not None or args.resume,
+        (getattr(args, "checkpoint", None) is not None or getattr(args, "resume", False),
          "--checkpoint/--resume: checkpoints are not ported yet (ROADMAP slice 5)"),
         (getattr(args, "chain_shards", 1) > 1,
          "--chain-shards > 1: chain sharding is not ported yet (ROADMAP slice 5)"),
+        (getattr(args, "data_shards", 1) > 1,
+         "--data-shards > 1: data-parallel SG-MCMC is not ported yet (ROADMAP slice 5)"),
+        (getattr(args, "shard_particles", False),
+         "--shard-particles: particle sharding is not ported yet (ROADMAP slice 5)"),
         (getattr(args, "data", None) is not None,
-         "--data PATH: the MNIST HDF5 reader is not ported yet (ROADMAP slice 5)"),
+         "--data PATH: the HDF5 readers are not ported yet (ROADMAP slice 5)"),
     ]
     for refused, msg in unported:
         if refused:
@@ -332,6 +344,281 @@ def cmd_mnist_nuts(args) -> dict:
     return agg
 
 
+def _generator(dev: torch.device, seed: int) -> torch.Generator:
+    return torch.Generator(device=dev).manual_seed(int(seed))
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _labelled(Xn, yn, n_classes: int, dev: torch.device):
+    """(X, integer labels, one-hot labels) on the device."""
+    X = torch.from_numpy(Xn).to(dev)
+    yi = torch.from_numpy(yn.astype(np.int64)).to(dev)
+    return X, yi, torch.nn.functional.one_hot(yi, n_classes).to(torch.float32)
+
+
+def _accuracy(pred: torch.Tensor, yi: torch.Tensor) -> float:
+    return float((pred == yi).to(torch.float32).mean())
+
+
+def cmd_mnist_mlp_sgmcmc(args) -> dict:
+    from .diagnostics import calibration_report, posterior_predictive_probs, summarize
+    from .inference import sgd as sgd_mod
+    from .inference import sgmcmc
+    from .io import datasets
+    from .models import DropoutMLP
+    from .ops.tree import tree_randn_like
+
+    _refuse_unported(args)
+    dev = _device(args)
+    X, yi, y = _labelled(*datasets.mnist(), NUM_CLASSES, dev)
+    n = X.shape[0]
+    model = DropoutMLP(dim=X.shape[1], hidden=args.hidden, n_classes=NUM_CLASSES,
+                       alpha=args.alpha, p_drop=args.p_drop)
+    # the SAMPLED potential is the dropout log posterior: per-step Bernoulli
+    # masks, one set per chain and gradient, go through the keyed log density
+    dropout = args.p_drop > 0.0
+    logdensity = model.make_batched_logdensity(data_size=n, dropout=dropout)
+
+    params0 = {k: v[None] for k, v in model.init_params(_generator(dev, args.seed), dev).items()}
+    sgd_s = 0.0
+    if args.sgd_init_steps > 0:
+        # warm start at an SGD mode: SG-MCMC burn-in from a cold Glorot init
+        # would need O(1e5) steps just to travel to the typical set
+        sgd_kernel = sgd_mod.build_sgd_kernel(model.make_batched_logdensity(data_size=n))
+        t0 = time.perf_counter()
+        sgd_state, _ = sgd_mod.fit(sgd_kernel, sgd_mod.sgd_init(params0), (X, y),
+                                   batch_size=args.batch_size, num_steps=args.sgd_init_steps,
+                                   step_size=args.sgd_step_size,
+                                   generator=_generator(dev, args.seed + 2))
+        _sync(dev)
+        sgd_s = time.perf_counter() - t0
+        params0 = sgd_state.position
+
+    # chains are the leading axis, with jittered starts around the SGD mode,
+    # so that split R-hat and ESS are computable over the MLP draws
+    chains = args.chains
+    positions0 = {k: v.expand((chains,) + v.shape[1:]) for k, v in params0.items()}
+    jitter = tree_randn_like(positions0, _generator(dev, args.seed + 4))
+    positions0 = {k: v + args.chain_jitter * jitter[k] for k, v in positions0.items()}
+
+    if args.algorithm == "sghmc":
+        kernel = sgmcmc.build_sghmc_kernel(logdensity, friction=args.friction, keyed=dropout)
+        states = sgmcmc.sghmc_init(positions0)
+    else:
+        kernel = sgmcmc.build_sgld_kernel(logdensity, keyed=dropout)
+        states = sgmcmc.sgld_init(positions0)
+
+    t0 = time.perf_counter()
+    _, positions, infos = sgmcmc.run_sgmcmc_chains(
+        kernel, states, chains, (X, y), batch_size=args.batch_size, num_steps=args.num_steps,
+        step_size_schedule=sgmcmc.constant_schedule(args.step_size),
+        collect_every=args.collect_every, burnin_steps=args.burnin_steps,
+        generator=_generator(dev, args.seed + 1))
+    _sync(dev)
+    elapsed = time.perf_counter() - t0
+
+    # Mixing over the (chains, draws, ...) MLP draws.  Weight-space R-hat on a
+    # deep net is ill-posed by construction (hidden-unit permutation symmetry:
+    # chains sample equivalent, differently labelled modes), so two
+    # function-space traces are reported beside it: the minibatch log density
+    # and the class probabilities on a fixed probe batch of 64 rows, which are
+    # identified functionals of the network.  summarize() takes the ESS in
+    # blocks over the parameter axis, so its FFT buffers stay bounded.
+    mix = {k: float(v) for k, v in summarize(positions)["aggregate"].items()}
+    fs = summarize({"logdensity": infos.logdensity})["aggregate"]
+    probe = X[torch.linspace(0, n - 1, 64).to(torch.int64)]
+    draws = positions["W1"].shape[1]
+    flat = {k: v.reshape((-1,) + v.shape[2:]) for k, v in positions.items()}
+    probe_probs = model.predict(flat, probe, prob=True).reshape(chains, draws, 64, NUM_CLASSES)
+    pt = summarize({"probe_probs": probe_probs})["aggregate"]
+
+    pm = {k: v.mean(dim=(0, 1)) for k, v in positions.items()}
+    acc = _accuracy(model.predict(pm, X), yi)
+    pp = posterior_predictive_probs(lambda p, x: model.predict(p, x, prob=True), positions, X,
+                                    max_draws=32)
+    cal = calibration_report(pp, yi)
+    mc_acc = None
+    if dropout:
+        # MC-dropout predictive: 16 fresh-mask stochastic forwards at the
+        # posterior mean, averaged
+        gen = _generator(dev, args.seed + 3)
+        mcp = sum(model.predict_stochastic(pm, X, generator=gen, prob=True)
+                  for _ in range(16)) / 16
+        mc_acc = _accuracy(mcp.argmax(dim=-1), yi)
+
+    agg = {
+        "workload": f"mnist-mlp-{args.algorithm}",
+        "dataset": datasets.mnist_provenance(),
+        "dropout": dropout,
+        "p_drop": args.p_drop,
+        "chains": chains,
+        "data_shards": args.data_shards,
+        "mc_dropout_accuracy": mc_acc,
+        "train_accuracy": acc,
+        "predictive_accuracy": cal["accuracy"],
+        "predictive_ece": round(cal["ece"], 4),
+        "predictive_nll": round(cal["nll"], 4),
+        "min_ess": round(mix["min_ess"], 1),
+        "median_ess": round(mix["median_ess"], 1),
+        "max_rhat": round(mix["max_rhat"], 4),
+        "logdensity_ess": round(float(fs["min_ess"]), 1),
+        "logdensity_rhat": round(float(fs["max_rhat"]), 4),
+        "predictive_trace_min_ess": round(float(pt["min_ess"]), 1),
+        "predictive_trace_median_ess": round(float(pt["median_ess"]), 1),
+        "predictive_trace_max_rhat": round(float(pt["max_rhat"]), 4),
+        "sgd_init_steps": args.sgd_init_steps,
+        "sgd_init_s": round(sgd_s, 2),
+        "elapsed_s": round(elapsed, 2),
+        "steps_per_sec": round(chains * args.num_steps / elapsed, 1),
+        "device": _device_name(dev),
+    }
+    print(json.dumps(agg), flush=True)
+    return agg
+
+
+def cmd_mnist_vi(args) -> dict:
+    """Mean-field ADVI baseline on the MNIST softmax / MLP posterior, with
+    the JSON schema of configs 3 and 4 (accuracy / ECE / NLL over
+    posterior-predictive draws), so the comparison with the samplers is
+    direct."""
+    from .diagnostics import calibration_report, posterior_predictive_probs
+    from .inference import vi
+    from .io import datasets
+    from .models import DropoutMLP, Softmax
+
+    _refuse_unported(args)
+    dev = _device(args)
+    if args.dataset == "digits":
+        Xn, yn = datasets.digits()
+        provenance = "sklearn-digits"
+    else:
+        Xn, yn = datasets.mnist()
+        provenance = datasets.mnist_provenance()
+    X, yi, y = _labelled(Xn, yn, NUM_CLASSES, dev)
+    n = X.shape[0]
+
+    if args.model == "mlp":
+        model = DropoutMLP(dim=X.shape[1], hidden=args.hidden, n_classes=NUM_CLASSES,
+                           alpha=args.alpha, p_drop=0.0)
+    else:
+        model = Softmax(dim=X.shape[1], n_classes=NUM_CLASSES, alpha=args.alpha)
+    kernel = vi.build_kernel(model.make_batched_logdensity(data_size=n),
+                             num_mc_samples=args.mc_samples, learning_rate=args.learning_rate)
+    # init_log_std: for deep nets start q nearly deterministic (e.g. -6); the
+    # default's 0.05 posterior noise through a 256-wide net swamps the
+    # likelihood gradient and ADVI collapses the means to the prior mode
+    state = vi.init(model.init_params(_generator(dev, args.seed), dev),
+                    initial_log_std=args.init_log_std)
+
+    t0 = time.perf_counter()
+    state, losses = vi.fit(kernel, state, (X, y), args.batch_size, args.num_steps,
+                           generator=_generator(dev, args.seed + 1))
+    _sync(dev)
+    elapsed = time.perf_counter() - t0
+
+    draws = vi.sample_from(state, args.posterior_draws, generator=_generator(dev, args.seed + 2))
+    pp = posterior_predictive_probs(lambda p, x: model.predict(p, x, prob=True),
+                                    {k: v[None] for k, v in draws.items()}, X,
+                                    max_draws=args.posterior_draws)
+    cal = calibration_report(pp, yi)
+    neg_elbo = losses.double().cpu().numpy()
+    agg = {
+        "workload": f"mnist-vi-{args.model}",
+        "dataset": provenance,
+        "train_accuracy": _accuracy(model.predict(state.mu, X), yi),
+        "predictive_accuracy": cal["accuracy"],
+        "predictive_ece": round(cal["ece"], 4),
+        "predictive_nll": round(cal["nll"], 4),
+        "elbo_first_last": [round(float(-neg_elbo[:50].mean()), 1),
+                            round(float(-neg_elbo[-50:].mean()), 1)],
+        "num_steps": args.num_steps,
+        "elapsed_s": round(elapsed, 2),
+        "steps_per_sec": round(args.num_steps / elapsed, 1),
+        "device": _device_name(dev),
+    }
+    print(json.dumps(agg), flush=True)
+    return agg
+
+
+def cmd_plantvillage_smc(args) -> dict:
+    from .diagnostics import calibration_report, posterior_predictive_probs
+    from .inference import hmc, smc
+    from .inference.sampling import init_chain_positions
+    from .io import datasets
+    from .models import Softmax
+
+    _refuse_unported(args)
+    dev = _device(args)
+    Xn, yn = datasets.plantvillage_features(n=args.n_data)
+    k = int(yn.max()) + 1
+    X, yi, y = _labelled(Xn, yn, k, dev)
+    model = Softmax(dim=X.shape[1], n_classes=k, alpha=args.alpha)
+
+    # the model broadcasts over the particle axis: every particle's density
+    # comes from one GEMM on the shared data
+    def log_prior(p):
+        return model.log_prior(p)
+
+    def log_lik(p):
+        return model.log_likelihood(p, (X, y))
+
+    def log_lik_batch(p, b):
+        return model.log_likelihood(p, b)
+
+    for fn in (log_prior, log_lik, log_lik_batch):
+        fn.chain_batched = True
+
+    particles = init_chain_positions(model.init_params, args.particles,
+                                     generator=_generator(dev, args.seed), device=dev)
+    smc_kwargs = dict(
+        kernel_builder=lambda ld: hmc.build_kernel(ld, args.num_steps),
+        init_builder=lambda ld: (lambda p: hmc.init(p, ld)),
+        step_size=args.step_size, num_mcmc_steps=args.mcmc_steps,
+    )
+    if args.mutation == "sghmc":
+        smc_kwargs.update(mutation="sghmc", log_likelihood_batch_fn=log_lik_batch,
+                          data=(X, y), batch_size=args.batch_size)
+
+    t0 = time.perf_counter()
+    state, info = smc.run_tempered_smc(particles, log_prior, log_lik, **smc_kwargs,
+                                       generator=_generator(dev, args.seed + 1))
+    _sync(dev)
+    elapsed = time.perf_counter() - t0
+
+    pm = {kk: v.mean(dim=0) for kk, v in state.particles.items()}
+    pp = posterior_predictive_probs(lambda p, x: model.predict(p, x, prob=True),
+                                    {kk: v[None] for kk, v in state.particles.items()}, X,
+                                    max_draws=32)
+    cal = calibration_report(pp, yi)
+    sa = info.stage_acceptance.cpu().numpy()
+    sa = sa[~np.isnan(sa)]
+    ss = info.stage_step_size.cpu().numpy()
+    ss = ss[~np.isnan(ss)]
+    agg = {
+        "workload": "plantvillage-smc",
+        "mutation": args.mutation,
+        "shard_particles": bool(args.shard_particles),
+        "dataset": datasets.plantvillage_provenance(),
+        "predictive_accuracy": cal["accuracy"],
+        "predictive_ece": round(cal["ece"], 4),
+        "train_accuracy": _accuracy(model.predict(pm, X), yi),
+        "num_stages": int(info.num_stages),
+        "log_evidence": float(state.log_evidence),
+        "stage_acceptance_min": round(float(sa.min()), 4) if sa.size else None,
+        "stage_acceptance_max": round(float(sa.max()), 4) if sa.size else None,
+        "step_size_first_last": [round(float(ss[0]), 6),
+                                 round(float(ss[-1]), 6)] if ss.size else None,
+        "elapsed_s": round(elapsed, 2),
+        "device": _device_name(dev),
+    }
+    print(json.dumps(agg), flush=True)
+    return agg
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="dhmc-torch",
                                      description="PyTorch/CUDA Bayesian MCMC workloads")
@@ -376,6 +663,75 @@ def main(argv=None):
                         "the fused one (much slower per draw at MNIST scale; "
                         "escape hatch / cross-check)")
     p.set_defaults(fn=cmd_mnist_nuts)
+
+    p = sub.add_parser("mnist-mlp-sgmcmc")
+    p.add_argument("--data", type=str, default=None,
+                   help="an MNIST HDF5 file (not ported yet: the synthetic set is used)")
+    p.add_argument("--algorithm", choices=["sgld", "sghmc"], default="sghmc")
+    p.add_argument("--chains", type=int, default=16,
+                   help="SG-MCMC chains, advanced together (jittered starts around the "
+                        "SGD mode; enables ESS / split-R-hat diagnostics)")
+    p.add_argument("--chain-jitter", type=float, default=0.02)
+    p.add_argument("--data-shards", type=int, default=1,
+                   help=">1: minibatch gradients summed across data shards (not ported yet)")
+    p.add_argument("--hidden", type=int, default=256)
+    p.add_argument("--alpha", type=float, default=1.0)
+    p.add_argument("--p-drop", type=float, default=0.1)
+    p.add_argument("--friction", type=float, default=1.0)
+    p.add_argument("--batch-size", type=int, default=1024)
+    p.add_argument("--num-steps", type=int, default=3000)
+    p.add_argument("--burnin-steps", type=int, default=1000)
+    p.add_argument("--collect-every", type=int, default=10)
+    p.add_argument("--step-size", type=float, default=1e-5)
+    p.add_argument("--sgd-init-steps", type=int, default=3000,
+                   help="SGD warm-start steps before sampling; 0 = cold")
+    p.add_argument("--sgd-step-size", type=float, default=2e-7,
+                   help="SGD step on the n-scaled log density: the effective rate on "
+                        "the mean loss is step*n/(1-gamma) ~ 0.12 at the defaults")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; cpu only when named)")
+    p.set_defaults(fn=cmd_mnist_mlp_sgmcmc)
+
+    p = sub.add_parser("mnist-vi")
+    p.add_argument("--data", type=str, default=None,
+                   help="an MNIST HDF5 file (not ported yet: the synthetic set is used)")
+    p.add_argument("--dataset", choices=["auto", "digits"], default="auto")
+    p.add_argument("--model", choices=["softmax", "mlp"], default="softmax")
+    p.add_argument("--hidden", type=int, default=256)
+    p.add_argument("--alpha", type=float, default=1.0)
+    p.add_argument("--batch-size", type=int, default=1024)
+    p.add_argument("--num-steps", type=int, default=3000)
+    p.add_argument("--mc-samples", type=int, default=1)
+    p.add_argument("--learning-rate", type=float, default=1e-2)
+    p.add_argument("--posterior-draws", type=int, default=32)
+    p.add_argument("--init-log-std", type=float, default=-3.0,
+                   help="initial log std of q (use ~-6 for the MLP: large initial "
+                        "posterior noise collapses ADVI on deep nets)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; cpu only when named)")
+    p.set_defaults(fn=cmd_mnist_vi)
+
+    p = sub.add_parser("plantvillage-smc")
+    p.add_argument("--data", type=str, default=None,
+                   help="a features HDF5 file (not ported yet: the synthetic set is used)")
+    p.add_argument("--n-data", type=int, default=5000)
+    p.add_argument("--alpha", type=float, default=1.0)
+    p.add_argument("--particles", type=int, default=128)
+    p.add_argument("--num-steps", type=int, default=8)
+    p.add_argument("--mcmc-steps", type=int, default=3)
+    p.add_argument("--step-size", type=float, default=1e-3)
+    p.add_argument("--mutation", choices=["hmc", "sghmc"], default="hmc",
+                   help="sghmc: minibatch SGHMC mutation on the tempered potential")
+    p.add_argument("--batch-size", type=int, default=512,
+                   help="minibatch size for --mutation sghmc")
+    p.add_argument("--shard-particles", action="store_true",
+                   help="lay the particle axis across devices (not ported yet)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; cpu only when named)")
+    p.set_defaults(fn=cmd_plantvillage_smc)
 
     args = parser.parse_args(argv)
     args.fn(args)

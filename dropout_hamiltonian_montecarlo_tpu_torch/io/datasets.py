@@ -9,7 +9,9 @@ byte-identical to the JAX package's generator (numpy ``RandomState``).  The
 arrays come back as numpy (X float32 (60000, 784) on the 8-bit k/256 grid,
 y int32 (60000,)); nothing is cached on disk.  ``digits()`` reads
 ``digits.npz`` beside this module, so it needs no scikit-learn.  Reading a
-real MNIST HDF5 file is not ported yet.
+real MNIST HDF5 file is not ported yet.  ``plantvillage_features()`` is the
+synthetic PlantVillage-shaped conv-feature set of config 5; its HDF5 reader
+waits for the file layer too.
 """
 
 from __future__ import annotations
@@ -75,6 +77,24 @@ def mnist() -> Tuple[np.ndarray, np.ndarray]:
     y = np.where(flip, rng.randint(0, 10, size=n), y).astype(np.int32)
     X = np.clip(X, 0.0, 1.0)
     X = np.round(X * 256.0) / 256.0          # the 8-bit grid k/256
+    return X, y
+
+
+def plantvillage_provenance() -> str:
+    """Where ``plantvillage_features()``'s arrays come from: always the
+    synthetic generator."""
+    return "synthetic-plantvillage"
+
+
+def plantvillage_features(n: int = 20000, dim: int = 512, k: int = 38,
+                          seed: int = 2) -> Tuple[np.ndarray, np.ndarray]:
+    """PlantVillage conv-feature classifier data, synthetic: clustered
+    conv-feature-like activations (ReLU-censored Gaussians around class
+    centres), 38 classes like PlantVillage.  X float32 (n, dim), y int32 (n,)."""
+    rng = np.random.RandomState(seed)
+    centers = np.maximum(rng.randn(k, dim).astype(np.float32), 0.0)
+    y = rng.randint(0, k, size=n).astype(np.int32)
+    X = np.maximum(centers[y] + 0.5 * rng.randn(n, dim).astype(np.float32), 0.0)
     return X, y
 
 

@@ -1,7 +1,10 @@
 """Model protocol.
 
 - ``params`` is a dict of tensors.
-- ``batch`` is a tuple ``(X, y)`` (or None for density targets).
+- ``batch`` is a tuple ``(X, y)`` (or None for density targets).  Its rows
+  lie on the second-to-last axis of ``X``: ``X`` is (B, D), one batch shared
+  by every chain, or (C, B, D), one minibatch per chain (what the SG-MCMC
+  run loop gathers; the softmax and MLP models take both).
 - ``log_likelihood`` returns the SUM of per-datum log-likelihoods.
 - ``log_posterior(params, batch, data_size)`` = log_prior + scale * log_lik
   with ``scale = data_size / batch_size`` (the unbiased minibatch estimator).
@@ -39,11 +42,16 @@ class Model:
     def init_params(self, generator: torch.Generator, device) -> Params:
         raise NotImplementedError
 
+    @staticmethod
+    def batch_size(batch: Batch) -> int:
+        """Rows per chain of a shared (B, D) or per-chain (C, B, D) batch."""
+        return batch[0].shape[-2]
+
     def log_posterior(self, params: Params, batch: Batch = None,
                       data_size: Optional[int] = None) -> torch.Tensor:
         ll = self.log_likelihood(params, batch)
         if data_size is not None and batch is not None:
-            ll = (data_size / batch[0].shape[0]) * ll
+            ll = (data_size / self.batch_size(batch)) * ll
         return self.log_prior(params) + ll
 
     def potential(self, params: Params, batch: Batch = None,
@@ -64,4 +72,5 @@ class Model:
         """Minibatch form: ``(params, batch) -> scaled log posterior``."""
         def logdensity(params: Params, batch: Batch) -> torch.Tensor:
             return self.log_posterior(params, batch, data_size)
+        logdensity.chain_batched = self.chain_batched
         return logdensity

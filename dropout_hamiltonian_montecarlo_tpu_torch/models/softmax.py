@@ -1,9 +1,10 @@
 """Bayesian softmax (multinomial logistic) regression.
 
 Params: {'weights': (D, K), 'bias': (K,)}, or chain-batched {'weights':
-(C, D, K), 'bias': (C, K)}; batch: (X (B, D), y (B, K) one-hot).  The log
-density broadcasts over the chain axis (one GEMM for all chains), which is
-what the per-chain samplers differentiate by autograd.  The fused
+(C, D, K), 'bias': (C, K)}; batch: (X (B, D), y (B, K) one-hot) shared by
+every chain, or one minibatch per chain (X (C, B, D), y (C, B, K)).  The log
+density broadcasts over the chain axis (one GEMM for all chains on a shared
+batch), which is what the per-chain samplers differentiate by autograd.  The fused
 chain-batched value+grad (``make_fused_value_and_grad``) goes through
 ops.softmax_glm instead.
 """
@@ -11,6 +12,7 @@ ops.softmax_glm instead.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -39,6 +41,9 @@ class Softmax(Model):
         W, b = params["weights"], params["bias"]
         if W.dim() == 2:
             return (y * torch.log_softmax(self.logits(params, X), dim=-1)).sum()
+        if X.dim() == 3:     # one minibatch per chain
+            z = torch.baddbmm(b[:, None, :], X, W)
+            return (y * torch.log_softmax(z, dim=-1)).sum(dim=(1, 2))
         # all chains in one GEMM: X (B, D) @ W as (D, C K), logits kept (B, C, K)
         c, d, k = W.shape
         z = (X @ W.permute(1, 0, 2).reshape(d, c * k)).reshape(-1, c, k) + b
@@ -54,6 +59,19 @@ class Softmax(Model):
     def predict(self, params: Params, X: torch.Tensor, prob: bool = False):
         p = torch.softmax(self.logits(params, X), dim=-1)
         return p if prob else torch.argmax(p, dim=-1)
+
+    def predict_stochastic(self, params: Params, X: torch.Tensor, *,
+                           mask: Optional[torch.Tensor] = None,
+                           generator: Optional[torch.Generator] = None, p_drop: float = 0.5,
+                           prob: bool = False):
+        """MC-dropout prediction: a Bernoulli(1 - p_drop) keep-mask over the
+        INPUT FEATURES (no rescale), the given ``mask`` (X's shape) or a
+        fresh one from ``generator``."""
+        if mask is None:
+            if generator is None:
+                raise ValueError("pass mask= or an explicit generator=")
+            mask = torch.rand(X.shape, generator=generator, device=X.device) < 1.0 - p_drop
+        return self.predict(params, X * mask.to(X.dtype), prob=prob)
 
     def analytic_grad(self, params: Params, batch) -> Params:
         """Closed-form gradient of the log posterior (one chain)."""

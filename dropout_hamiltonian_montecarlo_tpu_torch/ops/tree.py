@@ -82,6 +82,21 @@ def tree_randn_like(a: Params, generator: Optional[torch.Generator]) -> Params:
                            device=v.device) for k, v in a.items()}
 
 
+def tree_batch_randn_like(a: Params, generator: Optional[torch.Generator]) -> Params:
+    """Standard-normal dict with the shapes of a chain-batched ``a`` (leaves
+    (C, ...)), from ONE (C, P) draw cut into views: one launch, not one per
+    leaf.  Leaves are cut in sorted key order, as ``tree_batch_ravel`` lays
+    them."""
+    if generator is None:
+        raise ValueError("a random draw needs an explicit torch.Generator")
+    keys = sorted(a)
+    leaf = a[keys[0]]
+    sizes = [math.prod(a[k].shape[1:]) for k in keys]
+    z = torch.randn((leaf.shape[0], sum(sizes)), generator=generator, dtype=leaf.dtype,
+                    device=leaf.device)
+    return {k: piece.reshape(a[k].shape) for k, piece in zip(keys, z.split(sizes, dim=1))}
+
+
 def _bcast(v: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
     """Reshape a (C,)-vector so it broadcasts against a (C, ...) leaf."""
     return v.reshape(v.shape + (1,) * (leaf.dim() - v.dim()))

@@ -16,25 +16,34 @@ import torch
 from ..inference.hmc import HMCState
 from ..inference.metropolis import MHState
 from ..inference.nuts import NUTSState
+from ..inference.sgd import SGDState
+from ..inference.sgmcmc import SGHMCState, SGLDState
+from ..inference.smc import SMCState
+from ..inference.vi import MeanFieldState
 from ..ops.adaptation import DualAveragingState, WelfordState
 from ..ops.kron_metric import load_gn_setup  # noqa: F401  (re-exported)
 from ..ops.metrics import Metric, dense_metric_from_eigh
 from ..ops.tree import Params
 
-_STATE_TYPES = {cls.__name__: cls for cls in (HMCState, NUTSState, MHState, WelfordState,
-                                              DualAveragingState)}
+_STATE_TYPES = {cls.__name__: cls for cls in (
+    HMCState, NUTSState, MHState, WelfordState, DualAveragingState, SGLDState, SGHMCState,
+    SGDState, MeanFieldState, SMCState)}
 
 
 def params_from_jax(obj, device, add_chain_axis: bool = False):
     """JAX arrays (as numpy or anything ``np.asarray`` takes) -> tensors on
     ``device``, same structure: a parameter dict (single-chain {'weights':
-    (D, K), 'bias': (K,)} or chain-batched), or a JAX ``HMCState``,
-    ``NUTSState``, ``MHState``, ``WelfordState`` or ``DualAveragingState``,
-    which becomes the port's type of the same name.
+    (D, K), 'bias': (K,)}, the MLP's six leaves, or chain-batched), or a JAX
+    ``HMCState``, ``NUTSState``, ``MHState``, ``WelfordState``,
+    ``DualAveragingState``, ``SGLDState``, ``SGHMCState``, ``SGDState``,
+    ``MeanFieldState`` or ``SMCState``, which becomes the port's type of the
+    same name.
 
     ``add_chain_axis``: the JAX object is one chain's (what a per-chain JAX
     kernel sees under ``vmap``); every leaf gets a leading chain axis of 1,
-    which every state of the port carries.  Floating leaves become float32,
+    which every sampler state of the port carries (a ``MeanFieldState`` has
+    no chain axis in either package, and an ``SMCState``'s particle axis is
+    its chain axis: convert those without it).  Floating leaves become float32,
     integer and bool leaves keep their kind; a ``WelfordState``'s count, one
     scalar shared by all chains, becomes a float."""
     if isinstance(obj, Mapping):

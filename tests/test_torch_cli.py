@@ -3,8 +3,9 @@
 tests/test_nuts_batched.py::test_mnist_nuts_cli_digits_batched, configs 1 and
 2 and the per-chain ``mnist-nuts`` modes at small size, every JSON line's keys
 against the JAX CLI's line of the same subcommand (without ``compile_s``:
-the port compiles nothing), and the options that are not ported yet.
-Imports no jax."""
+the port compiles nothing), configs 4, 5 and 6 (``mnist-mlp-sgmcmc``,
+``plantvillage-smc``, ``mnist-vi``) at tiny sizes, and the options that are
+not ported yet.  Imports no jax."""
 
 import contextlib
 import io
@@ -42,6 +43,21 @@ PER_CHAIN_KEYS = AGG_KEYS | {
     "run_s", "sampler", "workload", "train_accuracy", "metric", "setup_s", "setup_from_cache",
     "dataset", "predictive_accuracy", "predictive_ece", "predictive_nll",
 }
+
+# mnist-mlp-sgmcmc (JAX cli.py:756-780), mnist-vi (:851-863),
+# plantvillage-smc (:935-950)
+SGMCMC_KEYS = {
+    "workload", "dataset", "dropout", "p_drop", "chains", "data_shards", "mc_dropout_accuracy",
+    "train_accuracy", "predictive_accuracy", "predictive_ece", "predictive_nll", "min_ess",
+    "median_ess", "max_rhat", "logdensity_ess", "logdensity_rhat", "predictive_trace_min_ess",
+    "predictive_trace_median_ess", "predictive_trace_max_rhat", "sgd_init_steps", "sgd_init_s",
+    "elapsed_s", "steps_per_sec",
+}
+VI_KEYS = {"workload", "dataset", "train_accuracy", "predictive_accuracy", "predictive_ece",
+           "predictive_nll", "elbo_first_last", "num_steps", "elapsed_s", "steps_per_sec"}
+SMC_KEYS = {"workload", "mutation", "shard_particles", "dataset", "predictive_accuracy",
+            "predictive_ece", "train_accuracy", "num_stages", "log_evidence",
+            "stage_acceptance_min", "stage_acceptance_max", "step_size_first_last", "elapsed_s"}
 
 
 def _run(argv):
@@ -116,6 +132,90 @@ def test_mnist_nuts_per_chain_modes_on_cpu(one_thread, mode, metric):
         assert agg["setup_s"] > 0 and agg["max_rhat"] < 1.5
     else:
         assert agg["setup_s"] == 0.0
+
+
+@pytest.mark.parametrize("algorithm, p_drop", [("sghmc", "0.1"), ("sgld", "0.1"),
+                                               ("sghmc", "0")],
+                         ids=["sghmc", "sgld", "sghmc-no-dropout"])
+def test_mnist_mlp_sgmcmc_cli_on_cpu(one_thread, algorithm, p_drop):
+    """Config 4 at a narrow width (hidden 32, 3 chains, 400 SGD steps, 100
+    sampler steps): the SGD warm start reaches the mode and the sampler keeps
+    its accuracy."""
+    step = "1e-5" if algorithm == "sghmc" else "1e-6"
+    agg = _run(["mnist-mlp-sgmcmc", "--algorithm", algorithm, "--p-drop", p_drop, "--hidden",
+                "32", "--batch-size", "128", "--num-steps", "100", "--burnin-steps", "40",
+                "--collect-every", "10", "--sgd-init-steps", "400", "--chains", "3",
+                "--step-size", step, "--device", "cpu"])
+    assert set(agg) == SGMCMC_KEYS | {"device"}
+    assert agg["workload"] == f"mnist-mlp-{algorithm}" and agg["device"] == "cpu"
+    assert agg["dataset"] == "synthetic-mnist" and agg["chains"] == 3 and agg["data_shards"] == 1
+    assert agg["dropout"] is (p_drop != "0")
+    for key in ("train_accuracy", "predictive_accuracy"):
+        assert agg[key] > 0.9, key
+    if p_drop == "0":
+        assert agg["mc_dropout_accuracy"] is None
+    else:
+        assert agg["mc_dropout_accuracy"] > 0.9
+    for key in ("predictive_nll", "predictive_ece", "min_ess", "median_ess", "max_rhat",
+                "logdensity_ess", "logdensity_rhat", "predictive_trace_min_ess",
+                "predictive_trace_median_ess", "predictive_trace_max_rhat", "sgd_init_s"):
+        assert math.isfinite(agg[key]), key
+    assert agg["steps_per_sec"] == pytest.approx(3 * 100 / agg["elapsed_s"], rel=0.05)
+
+
+@pytest.mark.parametrize("model, extra", [
+    ("softmax", ["--learning-rate", "0.02"]),
+    ("mlp", ["--hidden", "32", "--init-log-std", "-6", "--learning-rate", "3e-3"]),
+])
+def test_mnist_vi_cli_digits_on_cpu(one_thread, model, extra):
+    """Held to the JAX package's tests/test_vi.py::test_mnist_vi_cli_digits."""
+    agg = _run(["mnist-vi", "--dataset", "digits", "--model", model, "--num-steps", "800",
+                "--batch-size", "256", "--device", "cpu"] + extra)
+    assert set(agg) == VI_KEYS | {"device"}
+    assert agg["workload"] == f"mnist-vi-{model}" and agg["dataset"] == "sklearn-digits"
+    assert agg["predictive_accuracy"] > 0.85 and agg["train_accuracy"] > 0.85
+    assert agg["elbo_first_last"][1] > agg["elbo_first_last"][0]
+    assert agg["num_steps"] == 800 and math.isfinite(agg["predictive_nll"])
+
+
+@pytest.mark.parametrize("mutation, extra", [
+    ("hmc", []), ("sghmc", ["--batch-size", "128", "--mcmc-steps", "40"])])
+def test_plantvillage_smc_cli_on_cpu(one_thread, mutation, extra):
+    """Config 5 at 400 rows and 32 particles: the ladder reaches lambda = 1
+    (fewer stages than the stage cap), and under HMC every stage's acceptance
+    holds and the step size grows from its first value."""
+    agg = _run(["plantvillage-smc", "--n-data", "400", "--particles", "32", "--mutation",
+                mutation, "--device", "cpu"] + extra)
+    assert set(agg) == SMC_KEYS | {"device"}
+    assert agg["workload"] == "plantvillage-smc" and agg["mutation"] == mutation
+    assert agg["dataset"] == "synthetic-plantvillage" and agg["shard_particles"] is False
+    assert 1 <= agg["num_stages"] < 100 and math.isfinite(agg["log_evidence"])
+    assert agg["log_evidence"] < 0
+    if mutation == "hmc":
+        assert agg["predictive_accuracy"] > 0.95 and agg["train_accuracy"] > 0.95
+        assert 0.4 < agg["stage_acceptance_min"] <= agg["stage_acceptance_max"] <= 1.0
+        first, last = agg["step_size_first_last"]
+        assert first == 0.001 and last > first
+    else:
+        assert agg["stage_acceptance_min"] is None and agg["stage_acceptance_max"] is None
+        assert agg["step_size_first_last"] == [0.001, 0.001]
+        assert agg["predictive_accuracy"] > 0.5
+
+
+@pytest.mark.parametrize("argv, what", [
+    (["mnist-mlp-sgmcmc", "--data-shards", "2"], "--data-shards > 1"),
+    (["mnist-mlp-sgmcmc", "--data", "mnist.h5"], "--data PATH"),
+    (["mnist-vi", "--data", "mnist.h5"], "--data PATH"),
+    (["plantvillage-smc", "--shard-particles"], "--shard-particles"),
+    (["plantvillage-smc", "--data", "features.h5"], "--data PATH"),
+], ids=["data-shards", "sgmcmc-data", "vi-data", "shard-particles", "smc-data"])
+def test_single_device_configs_refuse_unported_options(argv, what):
+    with pytest.raises(NotImplementedError,
+                       match=f"{what}.* not ported yet \\(ROADMAP slice 5\\)"):
+        cli.main(argv + ["--device", "cpu"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(argv[:1])
 
 
 @pytest.mark.parametrize("sub", ["mvn-hmc", "logistic-hmc"])

@@ -72,3 +72,15 @@ def test_train_test_split_is_byte_identical():
     assert Xte.shape[0] == 30 and Xtr.shape[0] == 70
     for got, ref in ((Xtr, jXtr), (ytr, jytr), (Xte, jXte), (yte, jyte)):
         assert got.tobytes() == np.asarray(ref).tobytes()
+
+
+@pytest.mark.parametrize("kwargs", [{"n": 500}, {"n": 123, "dim": 40, "k": 7, "seed": 9}],
+                         ids=["default-width", "small"])
+def test_plantvillage_features_are_byte_identical(kwargs):
+    X, y = datasets.plantvillage_features(**kwargs)
+    jX, jy = jds.plantvillage_features(None, **kwargs)
+    assert X.dtype == np.float32 and y.dtype == np.int32
+    assert X.shape == (kwargs["n"], kwargs.get("dim", 512)) and float(X.min()) >= 0.0
+    assert X.tobytes() == np.asarray(jX).tobytes()
+    assert y.tobytes() == np.asarray(jy).tobytes()
+    assert datasets.plantvillage_provenance() == jds.plantvillage_provenance(None)

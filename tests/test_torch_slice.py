@@ -202,3 +202,20 @@ def test_port_imports_without_jax():
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.strip()) >= 20
+
+
+def test_no_port_source_names_jax_in_an_import():
+    """Statically: no module of the port, and not the chip smoke script,
+    imports jax or the JAX package (a lazy import inside a function would
+    pass the import walk above)."""
+    import re
+
+    sources = glob.glob(os.path.join(REPO, "dropout_hamiltonian_montecarlo_tpu_torch", "**",
+                                     "*.py"), recursive=True)
+    sources.append(os.path.join(REPO, "chip_smoke.py"))
+    assert len(sources) >= 40
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|dropout_hamiltonian_montecarlo_tpu)(\.|\s|$)",
+                         re.MULTILINE)
+    for path in sources:
+        with open(path) as f:
+            assert not pattern.search(f.read()), path
