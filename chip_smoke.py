@@ -59,12 +59,34 @@ Phases, one line each (any failure exits non-zero):
      accuracy >= 0.99, finite log evidence; under HMC every stage's
      acceptance in (0.4, 1.0], the final step size above the first, and the
      log evidence within 10% of -738.2 (the JAX package's recorded run).
+ 13. resume on the card at full width: config 3's pieces (128 chains, the
+     synthetic MNIST 60000 x 784, lockstep NUTS at depth cap 4, 20 warmup
+     steps) through ``sample_batched_streaming`` into the bounded draw buffer,
+     100 draws in 4 chunks.  Run A is uninterrupted; run B stops after 2
+     chunks and resumes from its checkpoint with warmup skipped and
+     placeholder step sizes; B's draws must equal A's BIT FOR BIT, the
+     checkpoint's counter must be right, and the value+grad launches of B's
+     second half must equal the lockstep leaves it ran.  Then a crash between
+     an append and its checkpoint write (one chunk more in the buffer than
+     the checkpoint knows): the resume truncates and still equals A.  Prints
+     seconds per chunk with and without the checkpoint write;
+ 14. the draw buffer: the same run with the threshold so low that the draws
+     go to pinned host memory; min / median ESS and max R-hat from the
+     blockwise diagnostics equal the device path's to rtol 1e-5; prints
+     ``torch.cuda.max_memory_allocated`` of both, beside the card's name and
+     power limit;
+ 15. files, only where ``h5py`` imports (one line says whether it does):
+     ``mnist-nuts --save --stream-chunk 25 --checkpoint`` through the CLI,
+     stopped by ``--samples``, resumed, the file read back and held against
+     an uninterrupted run's (equal bit for bit); and ``--data PATH`` on a
+     small file of off-grid pixels (k/255) that the script writes from a
+     seed, whose launches must take the kernel's X_lo passes.
 Phases 10-12 print seconds, steps/s and the device's busy share, and run no
 fused kernel (the JAX package computes these paths outside any Pallas
 kernel).  Every phase prints its seconds.
-Phases 4-12 each count the kernel's launches from zero just before the run
+Phases 4-15 each count the kernel's launches from zero just before the run
 and read them just after.  Then one JSON line describing each kernel (its
-launches summed over phases 4-12, its bound from the bytes and operations of
+launches summed over phases 4-15, its bound from the bytes and operations of
 the bench-shape call; ``library_ms`` is null because no single PyTorch call
 computes the function: the plain version is two matmuls and a log_softmax),
 and last:
@@ -76,8 +98,10 @@ import contextlib
 import io
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -86,6 +110,7 @@ SMALL_DRAWS = 300        # mvn-hmc --nuts and logistic-hmc, cut from 1000 draws
 SGMCMC_CHAINS, SMC_PARTICLES = 16, 256
 SMC_LOG_EVIDENCE = -738.2   # the JAX package's recorded config-5 run (RESULTS.md)
 NUTS_WARMUP, NUTS_DRAWS, NUTS_DEPTH = 50, 50, 4
+RESUME_WARMUP, RESUME_CHUNK, RESUME_CHUNKS = 20, 25, 4
 PER_CHAIN_WARMUP, PER_CHAIN_DRAWS = 30, 30
 # NVIDIA's data sheet for the H100 SXM: dense bf16 tensor-core rate (the
 # kernel's products are bf16 pieces), and the HBM3 rate
@@ -290,6 +315,315 @@ def check_moments(name, x, mean, cov, mean_atol, cov_atol) -> None:
              f"{cov_err:.3f} (> {cov_atol})")
 
 
+def config3_pieces(torch, arrays, chains, depth, warmup, device, seed=13):
+    """Config 3's pieces on ``device``: the data, the Kronecker metric and MAP,
+    the lockstep NUTS kernel on the fused value+grad, a warmed-up state, and
+    the map from whitened chunks to parameter space."""
+    from dropout_hamiltonian_montecarlo_tpu_torch.inference import nuts_batched
+    from dropout_hamiltonian_montecarlo_tpu_torch.inference.warmup import run_warmup
+    from dropout_hamiltonian_montecarlo_tpu_torch.models import Softmax
+    from dropout_hamiltonian_montecarlo_tpu_torch.ops import streams
+    from dropout_hamiltonian_montecarlo_tpu_torch.ops.kron_metric import (
+        cached_gn_setup, make_whitened_fused_vag)
+
+    Xn, yn = arrays
+    k = int(yn.max()) + 1
+    X = torch.from_numpy(Xn).to(device)
+    yi = torch.from_numpy(yn.astype("int64")).to(device)
+    y = torch.nn.functional.one_hot(yi, k).to(torch.float32)
+    model = Softmax(dim=X.shape[1], n_classes=k, alpha=1.0)
+    metric, _, qmap, _ = cached_gn_setup(X, y, model, alpha=1.0, newton_steps=60,
+                                         cache_dir=None, n_classes=k)
+    vag, _ = make_whitened_fused_vag(model, metric, qmap, (X, y))
+    kernel = nuts_batched.build_batched_kernel(vag, max_tree_depth=depth)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    e0 = {"weights": streams.randn((chains, X.shape[1], k), generator=gen, device=device),
+          "bias": streams.randn((chains, k), generator=gen, device=device)}
+    template = nuts_batched.batched_init(e0, vag)
+    warm = run_warmup(kernel, template, warmup,
+                      initial_step_size=torch.full((chains,), 0.1, device=device),
+                      target_acceptance=0.65, adapt_mass=False, generator=gen)
+
+    def to_param(pos_e):
+        out = {kk: torch.empty_like(v) for kk, v in pos_e.items()}
+        for c in range(chains):
+            dq = metric.unwhiten({kk: v[c] for kk, v in pos_e.items()})
+            for kk in out:
+                out[kk][c] = qmap[kk] + dq[kk]
+        return out
+
+    return {"kernel": kernel, "template": template, "warm": warm, "to_param": to_param,
+            "ones": {kk: torch.ones_like(v) for kk, v in e0.items()}, "e0": e0,
+            "device": torch.device(device), "chains": chains, "seed": seed}
+
+
+def phase_resume(torch, pieces, chunk, chunks, workdir, launch_counts, reset_counts):
+    """Phase 13.  Returns (the uninterrupted run's draw buffer, a dict of
+    what was measured, the launch counts of everything it ran)."""
+    from dropout_hamiltonian_montecarlo_tpu_torch.inference import sampling
+    from dropout_hamiltonian_montecarlo_tpu_torch.io.checkpoint import save_checkpoint
+
+    dev, chains = pieces["device"], pieces["chains"]
+    kernel, warm, ones = pieces["kernel"], pieces["warm"], pieces["ones"]
+    total = chunk * chunks
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def run(backend, num, states=None, step=None, **kw):
+        gen = torch.Generator(device=dev).manual_seed(pieces["seed"])
+        sync()
+        t0 = time.perf_counter()
+        out = sampling.sample_batched_streaming(
+            kernel, warm.state if states is None else states,
+            warm.step_size if step is None else step, ones, backend, num_samples=num,
+            chunk_size=chunk, transform=pieces["to_param"], generator=gen, **kw)
+        sync()
+        return out, time.perf_counter() - t0
+
+    reset_counts()
+    run(sampling.DeviceBackend(chunk), chunk)       # untimed: the first chunk pays set-up
+    # A0: uninterrupted, no checkpoint; A: uninterrupted, a checkpoint each chunk
+    plain = sampling.DeviceBackend(total)
+    _, plain_s = run(plain, total)
+    a = sampling.DeviceBackend(total)
+    (_, appended, _), ckpt_s = run(a, total, checkpoint_path=os.path.join(workdir, "a.ckpt"))
+    if appended != total or a.num_draws() != total:
+        fail(f"phase 13: the uninterrupted run appended {appended} of {total}")
+    qa, qp = a.draws(), plain.draws()
+    if not all(torch.equal(qa[k], qp[k]) for k in qa):
+        fail("phase 13: the same run with and without a checkpoint file differs")
+    del plain, qp
+    t0 = time.perf_counter()
+    for _ in range(3):
+        save_checkpoint(os.path.join(workdir, "t.ckpt"), warm.state, seed=0, step=0,
+                        extras={"step_size": warm.step_size, "inv_mass": ones})
+    save_ms = (time.perf_counter() - t0) / 3 * 1e3
+
+    # B: two chunks, then a resume with warmup skipped: template state and
+    # placeholder step sizes, which the checkpoint's replace
+    half = total // 2
+    ckpt = os.path.join(workdir, "b.ckpt")
+    b = sampling.DeviceBackend(total)
+    run(b, half, checkpoint_path=ckpt)
+    import numpy as np
+    with np.load(ckpt) as z:
+        counter, names = int(z["__step__"]), set(z.files)
+    if counter != half or "__seed__" not in names or "extra.step_size::" not in names:
+        fail(f"phase 13: the checkpoint's counter is {counter}, not {half}, or it lacks a key")
+    first = dict(launch_counts)
+    reset_counts()
+    leaves_before = kernel.leaves_executed
+    placeholder = torch.full((chains,), 99.0, device=dev)
+    (_, appended, infos), _ = run(b, total, states=pieces["template"], step=placeholder,
+                                  checkpoint_path=ckpt, resume=True)
+    second = dict(launch_counts)
+    leaves = kernel.leaves_executed - leaves_before
+    if dev.type == "cuda" and second != {"grad": 0, "value_and_grad": leaves}:
+        fail(f"phase 13: the resumed half launched {second}, its lockstep leaves are {leaves}")
+    if appended != total or len(infos) != chunks - chunks // 2:
+        fail(f"phase 13: the resume appended {appended}, ran {len(infos)} chunks")
+    qb = b.draws()
+    if not all(torch.equal(qb[k], qa[k]) for k in qa):
+        worst = max(float((qb[k] - qa[k]).abs().max()) for k in qa)
+        fail(f"phase 13: the resumed run differs from the uninterrupted one (max {worst:.3g})")
+    with np.load(ckpt) as z:
+        if int(z["__step__"]) != total:
+            fail(f"phase 13: the final checkpoint's counter is {int(z['__step__'])}")
+    del b, qb
+
+    # a crash between an append and its checkpoint write
+    reset_counts()
+    ckpt = os.path.join(workdir, "c.ckpt")
+    c = sampling.DeviceBackend(total)
+    run(c, half, checkpoint_path=ckpt)
+    c.append({k: torch.full((chunk,) + tuple(v.shape[:1] + v.shape[2:]), 1e9, device=dev)
+              for k, v in qa.items()})
+    if c.num_draws() != half + chunk:
+        fail("phase 13: the crashed buffer does not hold the extra chunk")
+    run(c, total, states=pieces["template"], step=placeholder, checkpoint_path=ckpt,
+        resume=True)
+    qc = c.draws()
+    if c.num_draws() != total or not all(torch.equal(qc[k], qa[k]) for k in qa):
+        fail("phase 13: the resume after a crash differs from the uninterrupted run")
+    third = dict(launch_counts)
+    counts = {k: first[k] + second[k] + third[k] for k in first}
+    measured = {"chains": chains, "draws": total, "chunk": chunk,
+                "s_per_chunk_no_checkpoint": round(plain_s / chunks, 4),
+                "s_per_chunk_with_checkpoint": round(ckpt_s / chunks, 4),
+                "checkpoint_write_ms": round(save_ms, 2),
+                "checkpoint_bytes": os.path.getsize(os.path.join(workdir, "t.ckpt")),
+                "resumed_half_value_and_grad_launches": second["value_and_grad"],
+                "resumed_half_lockstep_leaves": leaves}
+    return a, measured, counts
+
+
+def buffer_diagnostics(torch, q, storage, device):
+    """min / median ESS and max R-hat of a draw buffer, as the CLI computes
+    them: on the device where the draws lie there, else blockwise."""
+    from dropout_hamiltonian_montecarlo_tpu_torch.diagnostics.ess import effective_sample_size
+    from dropout_hamiltonian_montecarlo_tpu_torch.diagnostics.rhat import split_rhat
+    from dropout_hamiltonian_montecarlo_tpu_torch.diagnostics.summary import (draw_diagnostics,
+                                                                              median)
+
+    if storage == "device":
+        ess = torch.cat([effective_sample_size(q["weights"], block_size=512).reshape(-1),
+                         effective_sample_size(q["bias"]).reshape(-1)])
+        rh = torch.cat([split_rhat(q["weights"]).reshape(-1), split_rhat(q["bias"]).reshape(-1)])
+    else:
+        diag = draw_diagnostics(q, device)
+        ess, rh = diag["ess"], diag["rhat"]
+    return {"min_ess": float(ess.min()), "median_ess": float(median(ess)),
+            "max_rhat": float(rh.max())}
+
+
+def phase_draw_buffer(torch, pieces, chunk, chunks, reference):
+    """Phase 14.  ``reference``: the draw buffer of phase 13's uninterrupted
+    run (device storage).  Returns what was measured."""
+    from dropout_hamiltonian_montecarlo_tpu_torch.inference import sampling
+
+    dev, total = pieces["device"], chunk * chunks
+    cuda = dev.type == "cuda"
+    nbytes = sampling.draw_bytes(pieces["chains"], total, pieces["e0"])
+    out = {"draw_tensor_bytes": nbytes}
+    ref = reference.draws()
+    for storage, threshold in (("device", None), ("host", 1)):
+        chosen = sampling.choose_draw_storage(nbytes, dev, threshold)
+        if chosen != storage:
+            fail(f"phase 14: threshold {threshold} chose {chosen} storage, not {storage}")
+        if cuda:
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            out[f"{storage}_allocated_before"] = torch.cuda.memory_allocated(dev)
+        backend = sampling.DeviceBackend(total, storage=storage)
+        gen = torch.Generator(device=dev).manual_seed(pieces["seed"])
+        t0 = time.perf_counter()
+        sampling.sample_batched_streaming(
+            pieces["kernel"], pieces["warm"].state, pieces["warm"].step_size, pieces["ones"],
+            backend, num_samples=total, chunk_size=chunk, transform=pieces["to_param"],
+            generator=gen)
+        q = backend.draws()
+        if cuda:
+            torch.cuda.synchronize(dev)
+            out[f"{storage}_peak_allocated_sampling"] = torch.cuda.max_memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        out[f"{storage}_run_s"] = round(time.perf_counter() - t0, 3)
+        t0 = time.perf_counter()
+        out[storage] = buffer_diagnostics(torch, q, storage, dev)
+        out[f"{storage}_diag_s"] = round(time.perf_counter() - t0, 3)
+        if cuda:
+            out[f"{storage}_peak_allocated_diagnostics"] = torch.cuda.max_memory_allocated(dev)
+            if storage == "host" and not all(v.is_pinned() and not v.is_cuda
+                                              for v in q.values()):
+                fail("phase 14: the host buffer is not pinned host memory")
+        for k in ref:       # one chain at a time: no second copy on the device
+            if not all(torch.equal(q[k][c].to(dev), ref[k][c]) for c in range(ref[k].shape[0])):
+                fail(f"phase 14: the {storage} buffer's draws differ from phase 13's")
+        del backend, q
+    for key in ("min_ess", "median_ess", "max_rhat"):
+        d, h = out["device"][key], out["host"][key]
+        if not math.isfinite(h) or abs(h - d) > 1e-5 * abs(d):
+            fail(f"phase 14: {key} is {h} from the host buffer, {d} from the device buffer")
+    if cuda:
+        # the buffer is ONE copy of the draw tensor: the device run's peak over
+        # its start is the host run's (the chunk's temporaries and the
+        # kernel's buffers) plus at most 1.25 draw tensors, not two
+        extra = ((out["device_peak_allocated_sampling"] - out["device_allocated_before"])
+                 - (out["host_peak_allocated_sampling"] - out["host_allocated_before"]))
+        out["device_minus_host_peak_over_draw_bytes"] = round(extra / nbytes, 3)
+        if not 0.4 <= extra / nbytes <= 1.25:
+            fail(f"phase 14: the device buffer costs {extra} bytes of peak memory over the "
+                 f"host buffer, the draw tensor is {nbytes}")
+    return out
+
+
+def phase_files(torch, cli, kron_metric, backend_mod, workdir, chains, depth, chunk):
+    """Phase 15 (needs h5py).  Returns what was measured."""
+    import h5py
+    import numpy as np
+
+    def run(argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cli.main(argv)
+        return json.loads(out.getvalue().strip().splitlines()[-1])
+
+    def read(path):
+        with h5py.File(path, "r") as f:
+            return {k: f[k][:] for k in ("weights", "bias")}
+
+    # the time the file append adds per chunk
+    spent = {"s": 0.0, "n": 0}
+    inner = backend_mod.HDF5Backend.append
+
+    def timed_append(self, positions):
+        t0 = time.perf_counter()
+        inner(self, positions)
+        spent["s"] += time.perf_counter() - t0
+        spent["n"] += 1
+
+    device_args = [] if torch.cuda.is_available() else ["--device", "cpu"]
+    common = ["mnist-nuts", "--chains", str(chains), "--warmup", "20", "--max-depth",
+              str(depth), "--stream-chunk", str(chunk)] + device_args
+    full, part = os.path.join(workdir, "full.h5"), os.path.join(workdir, "part.h5")
+    ckpt = os.path.join(workdir, "part.ckpt")
+    backend_mod.HDF5Backend.append = timed_append
+    try:
+        a = run(common + ["--samples", str(4 * chunk), "--save", full, "--checkpoint",
+                          os.path.join(workdir, "full.ckpt")])
+        run(common + ["--samples", str(2 * chunk), "--save", part, "--checkpoint", ckpt])
+        b = run(common + ["--samples", str(4 * chunk), "--save", part, "--checkpoint", ckpt,
+                          "--resume"])
+    finally:
+        backend_mod.HDF5Backend.append = inner
+    fa, fb = read(full), read(part)
+    for k in fa:
+        if fa[k].shape[:2] != (4 * chunk, chains) or not np.array_equal(fa[k], fb[k]):
+            fail(f"phase 15: {k} of the resumed file differs from the uninterrupted run's")
+    if a["resumed"] or not b["resumed"] or b["warmup_s"] != 0.0:
+        fail(f"phase 15: resumed flags {a['resumed']} / {b['resumed']}, warmup_s {b['warmup_s']}")
+    for key in ("min_ess", "median_ess", "max_rhat"):
+        if abs(b[key] - a[key]) > 1e-5 * abs(a[key]):
+            fail(f"phase 15: {key} {b[key]} read back from the file, {a[key]} from the buffer")
+    out = {"file_bytes": os.path.getsize(full),
+           "append_s_per_chunk": round(spent["s"] / max(spent["n"], 1), 4),
+           "appends": spent["n"], "uninterrupted": a, "resumed": b}
+
+    # --data PATH on off-grid pixels (k/255 is not exact in bf16)
+    rng = np.random.RandomState(15)
+    n, d = 2000, 64
+    yi = rng.randint(0, 10, n)
+    centers = rng.randint(0, 200, (10, d))
+    pixels = np.clip(centers[yi] + 25 * rng.randn(n, d), 0, 255).round()
+    data = os.path.join(workdir, "mnist_train.h5")
+    with h5py.File(data, "w") as f:
+        f["X_train"] = (pixels / 255.0).astype(np.float32)
+        f["y_train"] = np.eye(10, dtype=np.float32)[yi]
+    seen = []
+    split = kron_metric.split_bf16_input
+
+    def capture(X):
+        pieces = split(X)
+        seen.append(pieces[1] is not None)
+        return pieces
+
+    kron_metric.split_bf16_input = capture
+    try:
+        line = run(["mnist-nuts", "--data", data, "--chains", "16", "--samples", "20",
+                    "--warmup", "20", "--max-depth", "3"] + device_args)
+    finally:
+        kron_metric.split_bf16_input = split
+    if torch.cuda.is_available() and seen != [True]:
+        fail(f"phase 15: the off-grid file's X was split {seen}: no X_lo piece")
+    if line["dataset"] != f"hdf5:{data}" or not line["train_accuracy"] > 0.85:
+        fail(f"phase 15: --data gave dataset {line['dataset']}, train accuracy "
+             f"{line['train_accuracy']}")
+    out["data_file"] = line
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -316,7 +650,9 @@ def main() -> None:
     # the synthetic MNIST is a pure function of nothing: generate it once for
     # all the phases that load it
     mnist_arrays = datasets.mnist()
-    datasets.mnist = lambda: mnist_arrays
+    read_mnist = datasets.mnist
+    datasets.mnist = lambda path=None, split="train": (
+        mnist_arrays if path is None and split == "train" else read_mnist(path, split))
 
     # ---- 1. device ------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
@@ -726,6 +1062,63 @@ def main() -> None:
         fail(f"phase 12 launched the fused kernel: {counts}")
     print(f"phases 10-12 launch counts of the fused kernel: {counts} (expected zeros)",
           flush=True)
+
+    # ---- 13. resume on the card, full width ----------------------------------
+    with tempfile.TemporaryDirectory() as workdir:
+        sg.reset_launch_counts()
+        pieces = config3_pieces(torch, mnist_arrays, CHAINS, NUTS_DEPTH, RESUME_WARMUP, "cuda")
+        torch.cuda.synchronize()
+        add(dict(sg.launch_counts))
+        reference, measured, counts = phase_resume(
+            torch, pieces, RESUME_CHUNK, RESUME_CHUNKS, workdir, sg.launch_counts,
+            sg.reset_launch_counts)
+        add(counts)
+        print(f"phase 13 resume: B (2 chunks, resumed to 4, warmup skipped) and the resume "
+              f"after a crash equal A bit for bit; {json.dumps(measured)}; launch counts "
+              f"{counts}; {smi.splitlines()[0]}", flush=True)
+        phase_seconds("phase 13")
+
+        # ---- 14. the draw buffer on the device and in pinned host memory ------
+        sg.reset_launch_counts()
+        sizes = phase_draw_buffer(torch, pieces, RESUME_CHUNK, RESUME_CHUNKS, reference)
+        torch.cuda.synchronize()
+        counts = dict(sg.launch_counts)
+        add(counts)
+        if counts["value_and_grad"] < 2 * RESUME_CHUNK * RESUME_CHUNKS:
+            fail(f"phase 14 kernel launches {counts}")
+        print(f"phase 14 draw buffer: {json.dumps(sizes)}; launch counts {counts}; "
+              f"{smi.splitlines()[0]}", flush=True)
+        del reference, pieces
+        torch.cuda.empty_cache()
+        phase_seconds("phase 14")
+
+        # ---- 15. files, where h5py imports ------------------------------------
+        try:
+            import h5py  # noqa: F401
+            have_h5py = True
+        except ImportError:
+            have_h5py = False
+        print(f"phase 15: h5py {'imports' if have_h5py else 'does not import'} on this "
+              f"machine", flush=True)
+        if have_h5py:
+            from dropout_hamiltonian_montecarlo_tpu_torch.io import backend as backend_mod
+            from dropout_hamiltonian_montecarlo_tpu_torch.ops import kron_metric
+
+            sg.reset_launch_counts()
+            files = phase_files(torch, cli, kron_metric, backend_mod, workdir, CHAINS,
+                                NUTS_DEPTH, RESUME_CHUNK)
+            torch.cuda.synchronize()
+            counts = dict(sg.launch_counts)
+            add(counts)
+            if counts["grad"] != 0 or counts["value_and_grad"] < 8 * RESUME_CHUNK:
+                fail(f"phase 15 kernel launches {counts}")
+            print(f"phase 15 files: the resumed file equals the uninterrupted run's bit for "
+                  f"bit; {json.dumps(files)}; launch counts {counts}; {smi.splitlines()[0]}",
+                  flush=True)
+            phase_seconds("phase 15")
+        else:
+            print("phase 15 was not run: it needs h5py (phases 13-14 hold the resume and "
+                  "the draw buffer without a file)", flush=True)
 
     kernels = [
         {"name": "softmax_glm_value_and_grad", "route": "cuda", "source": SOURCE,

@@ -9,8 +9,11 @@ NUTS and Metropolis kernels, Stan window warmup, the small models and the
 ``mvn-hmc`` / ``logistic-hmc`` / ``mnist-nuts`` CLI), and configs 4-6 on one
 device: the dropout MLP with its masks inside the sampled potential, SGLD /
 SGHMC, momentum SGD, mean-field ADVI, tempered SMC and the
-``mnist-mlp-sgmcmc`` / ``mnist-vi`` / ``plantvillage-smc`` CLI.  The
-multi-device and file layers are still to port.
+``mnist-mlp-sgmcmc`` / ``mnist-vi`` / ``plantvillage-smc`` CLI; and the file
+layer: HDF5 sample files both packages read, checkpoints, exact resume of
+the streaming samplers, a bounded draw buffer, the HDF5 dataset readers
+(``--save`` / ``--stream-chunk`` / ``--checkpoint`` / ``--resume`` /
+``--data``).  The multi-device layer (``parallel/``) is still to port.
 
 **The chain axis.**  The JAX package writes a sampler for one chain and runs
 many under ``jax.vmap``.  PyTorch has no ``vmap`` over data-dependent Python
@@ -24,7 +27,11 @@ which is what XLA makes of ``vmap(while_loop)``.  A ``logdensity_fn`` keeps
 the JAX meaning, one chain's params dict -> scalar;
 ``ops.integrators.lift_value_and_grad`` is the one place where it is lifted
 over the chain axis.  Every random number of a step can be injected;
-otherwise it comes from an explicit ``torch.Generator``.
+otherwise it comes from an explicit ``torch.Generator`` through the helpers
+of ``ops.streams``: a generator that carries a ``ChainBlock`` draws the rows
+of its chains out of the full run's draw, and the streaming samplers draw
+chunk i from the generator of (seed, stream, i), so neither the blocking of
+the chain axis nor a stop and resume moves a chain's random numbers.
 """
 
 import torch

@@ -26,6 +26,11 @@ Pipeline (the JAX package's bench.py, same settings):
   5. an exact Gibbs move on the softmax gauge subspace after every draw;
   6. draws mapped back to parameter space and FFT ESS per coordinate.
 
+BENCH_KERNEL=0 runs the plain PyTorch value+grad in place of the fused kernel
+(one bench A/B of kernel against plain; the line then says "kernel": "plain").
+BENCH_TRACE=DIR wraps the sampling loop in a torch.profiler span and writes
+DIR/trace.json (utils.profiling.device_trace).
+
 Prints ONE JSON line on stdout: {"metric", "value", "unit", "vs_baseline",
 "device", "detail"}; value = median ESS/s over all parameter coordinates
 (sampling seconds only; setup and warmup are reported apart).  The default
@@ -37,6 +42,7 @@ is no compile run to discard.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -61,11 +67,14 @@ def _sync(dev: torch.device) -> None:
 def run(*, device, chains: int = 128, warmup: int = 300, draws: int = 1000,
         num_integration_steps: int = 10, target_accept: float = 0.5,
         dataset: str = "mnist", seed: int = 1, sampler: str = "hmc",
-        nuts_depth=4, chees: bool = False) -> dict:
+        nuts_depth=4, chees: bool = False, use_kernel: bool = True,
+        trace_dir=None) -> dict:
     """Run the whole headline pipeline on ``device``; returns the JSON record.
 
     ``sampler`` is "hmc" or "nuts"; ``nuts_depth`` an int cap or "auto";
-    ``chees`` tunes HMC's L (ignored under NUTS, as in the JAX bench)."""
+    ``chees`` tunes HMC's L (ignored under NUTS, as in the JAX bench);
+    ``use_kernel=False`` runs the plain PyTorch value+grad in place of the
+    fused kernel; ``trace_dir`` profiles the sampling loop into that folder."""
     from . import full_f32_precision
     from .diagnostics.ess import effective_sample_size
     from .inference import hmc, nuts_batched
@@ -75,9 +84,10 @@ def run(*, device, chains: int = 128, warmup: int = 300, draws: int = 1000,
     from .models import Softmax
     from .ops.kron_metric import (cached_gn_setup, make_whitened_fused_vag,
                                   make_whitened_gauge_gibbs)
+    from .ops import streams
     from .ops.softmax_glm import launch_counts
     from .ops.tree import tree_ones_like
-    from .utils.profiling import SamplerStats
+    from .utils.profiling import SamplerStats, device_trace
 
     full_f32_precision()
     dev = torch.device(device)
@@ -115,13 +125,14 @@ def run(*, device, chains: int = 128, warmup: int = 300, draws: int = 1000,
     nuts_auto = use_nuts and nuts_depth == "auto"
     use_chees = chees and not use_nuts          # ChEES tunes HMC's trajectory
     gauge_gibbs = make_whitened_gauge_gibbs(metric, aux, qmap)
-    batched_vag, batched_grad = make_whitened_fused_vag(model, metric, qmap, (X, y))
+    batched_vag, batched_grad = make_whitened_fused_vag(model, metric, qmap, (X, y),
+                                                        use_kernel=use_kernel)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     init = nuts_batched.batched_init if use_nuts else hmc.batched_init
 
     # Laplace init is exactly e ~ N(0, I) in whitened coordinates
-    e0 = {"weights": torch.randn((chains, d, NUM_CLASSES), generator=gen, device=dev),
-          "bias": torch.randn((chains, NUM_CLASSES), generator=gen, device=dev)}
+    e0 = {"weights": streams.randn((chains, d, NUM_CLASSES), generator=gen, device=dev),
+          "bias": streams.randn((chains, NUM_CLASSES), generator=gen, device=dev)}
     t0 = time.perf_counter()
     nuts_kernels = []
     if use_chees:
@@ -188,15 +199,16 @@ def run(*, device, chains: int = 128, warmup: int = 300, draws: int = 1000,
     leaves_before = kernel.leaves_executed if use_nuts else 0
     stats = SamplerStats(num_chains=chains).start()
     st = init(warm_state.position, batched_vag)
-    for t in range(draws):
-        st, info = kernel(st, warm_step, warm_inv_mass, generator=gen)
-        st = gauge_gibbs(st, generator=gen)
-        e_w[:, t] = st.position["weights"]
-        e_b[:, t] = st.position["bias"]
-        acc_sum += info.acceptance_prob
-        div_sum += info.is_divergent
-        leaves_sum += info.num_integration_steps
-    _sync(dev)
+    with device_trace(trace_dir) if trace_dir else contextlib.nullcontext():
+        for t in range(draws):
+            st, info = kernel(st, warm_step, warm_inv_mass, generator=gen)
+            st = gauge_gibbs(st, generator=gen)
+            e_w[:, t] = st.position["weights"]
+            e_b[:, t] = st.position["bias"]
+            acc_sum += info.acceptance_prob
+            div_sum += info.is_divergent
+            leaves_sum += info.num_integration_steps
+        _sync(dev)
     # grad evals: for NUTS the leaves the lockstep kernel executed (the max
     # over chains, plus any masked leaf a late flag read let through); the
     # per-chain tree sizes are reported apart
@@ -259,7 +271,9 @@ def run(*, device, chains: int = 128, warmup: int = 300, draws: int = 1000,
             "map_train_accuracy": map_acc,
             "amortized_warmup_seconds": t_warm,
             "ess_seconds": t_ess,
-            "path": "cuda-kernel" if dev.type == "cuda" else "torch-plain",
+            "path": ("torch-plain" if dev.type != "cuda" else
+                     "cuda-kernel" if use_kernel else "cuda-plain"),
+            "kernel": "cuda" if dev.type == "cuda" and use_kernel else "plain",
             "kernel_launches": dict(launch_counts),
             "sampler": sampler,
             "nuts_depth_cap": nuts_cap if use_nuts else None,
@@ -284,7 +298,8 @@ def main(argv=None) -> None:
     args = parser.parse_args(argv)
 
     if int(os.environ.get("BENCH_CHAIN_SHARDS", "1")) > 1:
-        raise NotImplementedError("BENCH_CHAIN_SHARDS>1: chain sharding is not ported yet")
+        raise NotImplementedError("BENCH_CHAIN_SHARDS>1: chain sharding is not ported yet "
+                                  "(ROADMAP queue 1, the parallel/ layer)")
     depth = os.environ.get("BENCH_NUTS_DEPTH", "4")
     result = run(
         device=args.device,
@@ -297,6 +312,8 @@ def main(argv=None) -> None:
         sampler=os.environ.get("BENCH_SAMPLER", "hmc"),
         nuts_depth=("auto" if depth == "auto" else int(depth)),
         chees=os.environ.get("BENCH_CHEES", "0") == "1",
+        use_kernel=os.environ.get("BENCH_KERNEL", "1") == "1",
+        trace_dir=os.environ.get("BENCH_TRACE"),
     )
     print(json.dumps(result))
 

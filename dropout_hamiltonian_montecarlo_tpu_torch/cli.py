@@ -18,20 +18,29 @@
 Each prints one JSON summary line with the keys of the JAX package's
 ``dhmc-tpu`` subcommand of the same name plus ``"device"`` (no ``compile_s``:
 nothing is compiled).  The default device is cuda and the run fails without a
-card; ``--device cpu`` must be asked for by name.  The multi-device and file
-options (``--chain-shards``, ``--data-shards``, ``--shard-particles``,
-``--save``, ``--data`` ...) raise ``NotImplementedError``: they wait for the
-parallel and file layers.
+card; ``--device cpu`` must be asked for by name.
+
+``--save FILE`` writes the draws to an HDF5 file the JAX package reads too;
+with ``--stream-chunk N`` they are spooled in chunks of N while sampling, and
+``--checkpoint FILE`` then writes a resumable checkpoint after every chunk:
+``--resume`` skips warmup and goes on where the checkpoint stopped, and the
+file ends up holding exactly the draws of an uninterrupted run.  ``--data
+PATH`` reads the data from an HDF5 file.  The multi-device options
+(``--chain-shards``, ``--data-shards``, ``--shard-particles``) raise
+``NotImplementedError``: they wait for the parallel layer.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import numpy as np
 import torch
+
+from .ops import streams
 
 NUM_CLASSES = 10
 
@@ -43,39 +52,57 @@ def _common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--step-size", type=float, default=0.1)
     p.add_argument("--save", type=str, default=None,
-                   help="write posterior draws to this HDF5 file (not ported yet)")
+                   help="write posterior draws to this HDF5 file")
     p.add_argument("--stream-chunk", type=int, default=0,
-                   help="with --save: spool draws in chunks of this many (not ported yet)")
+                   help="with --save: spool draws to the file in chunks of this many "
+                        "draws during sampling (0 = save once at the end)")
     p.add_argument("--checkpoint", type=str, default=None,
-                   help="write a resumable checkpoint after every chunk (not ported yet)")
+                   help="with --save --stream-chunk: atomically write a resumable "
+                        "checkpoint (.npz) after every chunk")
     p.add_argument("--resume", action="store_true",
-                   help="resume from --checkpoint (not ported yet)")
+                   help="resume from --checkpoint if it exists (skips warmup; use the "
+                        "original --stream-chunk)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu only when named)")
 
 
+WAITS_FOR_PARALLEL = "not ported yet (ROADMAP queue 1, the parallel/ layer)"
+
+
 def _refuse_unported(args) -> None:
-    """Options of the JAX CLI that the port does not run yet, each with its
-    ROADMAP slice."""
+    """Options of the JAX CLI that the port does not run yet: the ones that
+    lay a run over several devices."""
     unported = [
-        (getattr(args, "save", None) is not None,
-         "--save: HDF5 backends are not ported yet (ROADMAP slice 5)"),
-        (getattr(args, "stream_chunk", 0) > 0,
-         "--stream-chunk: HDF5 spooling is not ported yet (ROADMAP slice 5)"),
-        (getattr(args, "checkpoint", None) is not None or getattr(args, "resume", False),
-         "--checkpoint/--resume: checkpoints are not ported yet (ROADMAP slice 5)"),
         (getattr(args, "chain_shards", 1) > 1,
-         "--chain-shards > 1: chain sharding is not ported yet (ROADMAP slice 5)"),
+         f"--chain-shards > 1: chain sharding is {WAITS_FOR_PARALLEL}"),
         (getattr(args, "data_shards", 1) > 1,
-         "--data-shards > 1: data-parallel SG-MCMC is not ported yet (ROADMAP slice 5)"),
+         f"--data-shards > 1: data-parallel SG-MCMC is {WAITS_FOR_PARALLEL}"),
         (getattr(args, "shard_particles", False),
-         "--shard-particles: particle sharding is not ported yet (ROADMAP slice 5)"),
-        (getattr(args, "data", None) is not None,
-         "--data PATH: the HDF5 readers are not ported yet (ROADMAP slice 5)"),
+         f"--shard-particles: particle sharding is {WAITS_FOR_PARALLEL}"),
     ]
     for refused, msg in unported:
         if refused:
             raise NotImplementedError(msg)
+
+
+def _resuming(args) -> bool:
+    """Whether this run continues a checkpoint, after the checks the file
+    options need.  ``--checkpoint`` / ``--resume`` need ``--save``: only a
+    persistent backend holds the draws a resumed run goes on from.  The sample
+    file is opened in append mode only when this returns True: a crash before
+    the first checkpoint write must not leave a stale chunk under a fresh run.
+    And ``--resume`` with a sample file but no checkpoint raises instead of
+    overwriting the file."""
+    if (args.resume or args.checkpoint) and not args.save:
+        raise SystemExit("--checkpoint/--resume require --save (a persistent backend "
+                         "holds the earlier draws)")
+    resuming = bool(args.resume and args.checkpoint and os.path.exists(args.checkpoint))
+    if args.resume and not resuming and os.path.exists(args.save):
+        raise FileExistsError(
+            f"--resume: there is no checkpoint at {args.checkpoint!r}, but the sample file "
+            f"{args.save!r} exists and a fresh run would overwrite it; remove the file, or "
+            f"drop --resume to start again")
+    return resuming
 
 
 def _device(args) -> torch.device:
@@ -95,12 +122,34 @@ def _device_name(dev: torch.device) -> str:
 
 
 def _run_chains(args, init_fn, kernel, positions, gen, adapt_mass=True):
-    """``sample_posterior`` with the common options.  Returns (positions with
-    (chains, draws, ...) leading axes, run_s): warmup and sampling together,
-    as the JAX CLI times them."""
-    from .inference.sampling import sample_posterior
+    """``sample_posterior`` with the common options, or, with ``--save`` and
+    ``--stream-chunk``, the streaming form: the draws are spooled to the file
+    chunk by chunk and read back.  Returns (positions with (chains, draws,
+    ...) leading axes, streamed, run_s): warmup and sampling together, as the
+    JAX CLI times them."""
+    from .inference.sampling import sample_posterior, sample_posterior_streaming
 
     dev = next(iter(positions.values())).device
+    resuming = _resuming(args)
+    if args.save and args.stream_chunk > 0:
+        from .io import HDF5Backend
+
+        t0 = time.perf_counter()
+        with HDF5Backend(args.save, mode="a" if resuming else "w") as b:
+            sample_posterior_streaming(
+                init_fn, kernel, positions, b, num_samples=args.samples,
+                chunk_size=args.stream_chunk, num_warmup=args.warmup, num_chains=args.chains,
+                initial_step_size=args.step_size, adapt_mass=adapt_mass,
+                checkpoint_path=args.checkpoint, resume=args.resume, generator=gen)
+            stored = b.read()
+        run_s = time.perf_counter() - t0
+        # (draws, chains, ...) in the file -> (chains, draws, ...) for the diagnostics
+        return ({k: torch.from_numpy(v).to(dev).transpose(0, 1) for k, v in stored.items()},
+                True, run_s)
+    if args.checkpoint or args.resume:
+        raise SystemExit("--checkpoint/--resume require --save and --stream-chunk (the "
+                         "checkpoint is written after every spooled chunk)")
+
     t0 = time.perf_counter()
     post = sample_posterior(init_fn, kernel, positions, num_samples=args.samples,
                             num_warmup=args.warmup, num_chains=args.chains,
@@ -108,14 +157,20 @@ def _run_chains(args, init_fn, kernel, positions, gen, adapt_mass=True):
                             generator=gen)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    return post.positions, time.perf_counter() - t0
+    return post.positions, False, time.perf_counter() - t0
 
 
-def _save_and_summarize(positions, elapsed) -> dict:
-    """The aggregate ESS / R-hat line of the draws (``--save`` is refused
-    before any run: file backends are not ported yet)."""
+def _save_and_summarize(args, positions, elapsed, already_saved=False) -> dict:
+    """The aggregate ESS / R-hat line of the draws; with ``--save`` (and the
+    draws not already spooled) they are appended to the file first, chains
+    and draws flattened into the leading axis as the JAX CLI writes them."""
     from .diagnostics import summarize
 
+    if args.save and not already_saved:
+        from .io import HDF5Backend
+
+        with HDF5Backend(args.save) as b:
+            b.append({k: v.reshape((-1,) + tuple(v.shape[2:])) for k, v in positions.items()})
     s = summarize(positions, elapsed_seconds=elapsed)
     return {k: float(v) for k, v in s["aggregate"].items()}
 
@@ -141,8 +196,8 @@ def cmd_mvn_hmc(args) -> dict:
     gen = torch.Generator(device=dev).manual_seed(int(args.seed))
     positions = init_chain_positions(model.init_params, args.chains, jitter=1.0,
                                      generator=gen, device=dev)
-    draws, run_s = _run_chains(args, init_fn, kernel, positions, gen)
-    agg = _save_and_summarize(draws, run_s)
+    draws, streamed, run_s = _run_chains(args, init_fn, kernel, positions, gen)
+    agg = _save_and_summarize(args, draws, run_s, already_saved=streamed)
     agg.update({"workload": "mvn-hmc", "run_s": round(run_s, 2),
                 "device": _device_name(dev)})
     print(json.dumps(agg), flush=True)
@@ -166,38 +221,50 @@ def cmd_logistic_hmc(args) -> dict:
     gen = torch.Generator(device=dev).manual_seed(int(args.seed))
     positions = init_chain_positions(model.init_params, args.chains, jitter=0.5,
                                      generator=gen, device=dev)
-    draws, run_s = _run_chains(args, lambda p: hmc.init(p, logdensity), kernel, positions, gen)
+    draws, streamed, run_s = _run_chains(args, lambda p: hmc.init(p, logdensity), kernel,
+                                         positions, gen)
     pm = {k: v.mean(dim=(0, 1)) for k, v in draws.items()}
     acc = float((model.predict(pm, Xte) == yte).to(torch.float32).mean())
-    agg = _save_and_summarize(draws, run_s)
+    agg = _save_and_summarize(args, draws, run_s, already_saved=streamed)
     agg.update({"workload": "logistic-hmc", "test_accuracy": acc, "run_s": round(run_s, 2),
                 "device": _device_name(dev)})
     print(json.dumps(agg), flush=True)
     return agg
 
 
-def _run_mnist_nuts_batched(args, model, metric, qmap, X, y, gen):
+def _run_mnist_nuts_batched(args, model, metric, qmap, X, y, gen, draw_buffer_threshold=None):
     """Config 3's execution path: lockstep chain-batched NUTS in whitened
     coordinates, every leaf of every chain's tree through ONE fused
     value+grad call, warmup by per-chain dual averaging on the same kernel,
-    sampling in chunks with the draws kept on the device, and the
-    diagnostics (blocked ESS, split R-hat, posterior mean, predictive
-    probabilities) computed where the draws lie.
+    sampling in chunks (``--stream-chunk``, default 50) into a bounded draw
+    buffer, and the diagnostics (blocked ESS, split R-hat, posterior mean,
+    predictive probabilities) computed where the draws lie.
 
-    Returns (run_s, extra, device_results)."""
+    The buffer holds (chains, draws, parameters) floats.  While that is at
+    most ``draw_buffer_threshold`` bytes (default: a quarter of the card's
+    free memory) it lies on the device; above it, in pinned host memory, and
+    the diagnostics take it in blocks.  ``--save`` spools every chunk to the
+    file as well; a RESUMED run's earlier draws exist only in the file, so it
+    reads the file back (blockwise, through host memory).
+
+    Returns (run_s, extra, results): the results hold the aggregate line,
+    the posterior mean and the predictive probabilities."""
     from .diagnostics.calibration import posterior_predictive_probs
     from .diagnostics.ess import effective_sample_size
     from .diagnostics.rhat import split_rhat
-    from .diagnostics.summary import median
+    from .diagnostics.summary import draw_diagnostics, median
     from .inference import nuts_batched
-    from .inference.sampling import DeviceBackend, sample_batched_streaming
+    from .inference.sampling import (TeeDeviceBackend, choose_draw_storage, draw_bytes,
+                                     sample_batched_streaming)
     from .inference.warmup import run_warmup
     from .ops.kron_metric import make_whitened_fused_vag
+    from .ops.tree import tree_ones_like
 
     dev = X.device
     d, k, chains = X.shape[1], NUM_CLASSES, args.chains
     batched_vag, _ = make_whitened_fused_vag(model, metric, qmap, (X, y))
     kernel = nuts_batched.build_batched_kernel(batched_vag, max_tree_depth=args.max_depth)
+    resuming = _resuming(args)
 
     def sync():
         if dev.type == "cuda":
@@ -205,14 +272,23 @@ def _run_mnist_nuts_batched(args, model, metric, qmap, X, y, gen):
 
     t0 = time.perf_counter()
     # Laplace init is exactly e ~ N(0, I) in whitened coordinates
-    e0 = {"weights": torch.randn((chains, d, k), generator=gen, device=dev),
-          "bias": torch.randn((chains, k), generator=gen, device=dev)}
-    warm = run_warmup(kernel, nuts_batched.batched_init(e0, batched_vag), args.warmup,
-                      initial_step_size=torch.full((chains,), args.step_size, device=dev),
-                      target_acceptance=args.target_accept, adapt_mass=False,
-                      generator=gen)
-    sync()
-    warm_s = time.perf_counter() - t0
+    e0 = {"weights": streams.randn((chains, d, k), generator=gen, device=dev),
+          "bias": streams.randn((chains, k), generator=gen, device=dev)}
+    state0 = nuts_batched.batched_init(e0, batched_vag)
+    if resuming:
+        # warmup is skipped: the checkpoint carries the chain states and the
+        # adapted step sizes, which replace these placeholders of the right shapes
+        warm_state, warm_step = state0, torch.full((chains,), args.step_size, device=dev)
+        warm_s = 0.0
+    else:
+        warm = run_warmup(kernel, state0, args.warmup,
+                          initial_step_size=torch.full((chains,), args.step_size, device=dev),
+                          target_acceptance=args.target_accept, adapt_mass=False,
+                          generator=gen)
+        warm_state, warm_step = warm.state, warm.step_size
+        sync()
+        warm_s = time.perf_counter() - t0
+    inv_mass = tree_ones_like(e0)
 
     def to_param(pos_e):
         # whitened (C, T, ...) draws -> parameter space, one chain at a time
@@ -223,26 +299,52 @@ def _run_mnist_nuts_batched(args, model, metric, qmap, X, y, gen):
                 out[kk][c] = qmap[kk] + dq[kk]
         return out
 
-    chunk = min(max(args.samples, 1), 50)
-    backend = DeviceBackend()
+    chunk = args.stream_chunk if args.stream_chunk > 0 else min(max(args.samples, 1), 50)
+    file_b = None
+    if args.save:
+        from .io import HDF5Backend
+
+        file_b = HDF5Backend(args.save, mode="a" if resuming else "w")
+    # a fresh run diagnoses the draws where the buffer holds them
+    buffered = not resuming
+    storage = choose_draw_storage(draw_bytes(chains, args.samples, e0), dev,
+                                  draw_buffer_threshold)
     t0 = time.perf_counter()
-    _, appended, infos = sample_batched_streaming(
-        kernel, warm.state, warm.step_size, warm.inv_mass, backend,
-        num_samples=args.samples, chunk_size=chunk, transform=to_param, generator=gen)
+    with (TeeDeviceBackend(file_b, num_draws=args.samples, storage=storage)
+          if buffered else file_b) as b:
+        _, _, infos = sample_batched_streaming(
+            kernel, warm_state, warm_step, inv_mass, b, num_samples=args.samples,
+            chunk_size=chunk, transform=to_param, checkpoint_path=args.checkpoint,
+            resume=args.resume, generator=gen)
+        if buffered:
+            q = b.draws()                                # (C, T, ...)
+        else:
+            storage = "file"
+            q = {kk: torch.from_numpy(v).transpose(0, 1) for kk, v in b.read().items()}
     sync()
     run_s = time.perf_counter() - t0
-    extra = {"sampler": "batched-nuts", "warmup_s": round(warm_s, 2), "chain_shards": 1,
-             "resumed": False,
-             "draws_per_sec": round(chains * appended / max(run_s, 1e-9), 1)}
 
-    # diagnostics where the draws live; only the (n, k) predictive
-    # probabilities and a few scalars go to the host
+    # the rate counts the draws THIS call made (a resumed run restores the
+    # earlier ones from the file): it ran the LAST len(infos) chunks, of which
+    # the final one may be partial
+    n_chunks = -(-args.samples // chunk)
+    takes = [min(chunk, args.samples - i * chunk) for i in range(n_chunks)]
+    made_draws = sum(takes[n_chunks - len(infos):]) if infos else 0
+    extra = {"sampler": "batched-nuts", "warmup_s": round(warm_s, 2), "chain_shards": 1,
+             "resumed": resuming,
+             "draws_per_sec": round(chains * made_draws / max(run_s, 1e-9), 1)}
+
+    # only the (n, k) predictive probabilities and a few scalars go to the host
     t1 = time.perf_counter()
-    q = backend.draws()                                  # (C, T, ...)
-    ess = torch.cat([effective_sample_size(q["weights"], block_size=512).reshape(-1),
-                     effective_sample_size(q["bias"]).reshape(-1)])
-    rh = torch.cat([split_rhat(q["weights"]).reshape(-1), split_rhat(q["bias"]).reshape(-1)])
-    pm = {kk: v.mean(dim=(0, 1)) for kk, v in q.items()}
+    if storage == "device":
+        ess = torch.cat([effective_sample_size(q["weights"], block_size=512).reshape(-1),
+                         effective_sample_size(q["bias"]).reshape(-1)])
+        rh = torch.cat([split_rhat(q["weights"]).reshape(-1),
+                        split_rhat(q["bias"]).reshape(-1)])
+        pm = {kk: v.mean(dim=(0, 1)) for kk, v in q.items()}
+    else:
+        diag = draw_diagnostics(q, dev)
+        ess, rh, pm = diag["ess"], diag["rhat"], diag["mean"]
     pp = posterior_predictive_probs(lambda p, x: model.predict(p, x, prob=True), q, X,
                                     max_draws=32)
     agg = {"min_ess": float(ess.min()), "median_ess": float(median(ess)),
@@ -259,10 +361,12 @@ def _run_mnist_nuts_batched(args, model, metric, qmap, X, y, gen):
             "mean_acceptance": round(float(np.mean([i.acceptance_prob for i in infos])), 4),
             "divergent_frac": round(float(np.mean([i.is_divergent for i in infos])), 6),
         })
-    return run_s, extra, {"agg": agg, "pm": pm, "pp": pp, "diag_s": diag_s}
+    return run_s, extra, {"agg": agg, "pm": pm, "pp": pp, "diag_s": diag_s,
+                          "draw_storage": storage}
 
 
-def cmd_mnist_nuts(args) -> dict:
+def cmd_mnist_nuts(args, draw_buffer_threshold=None) -> dict:
+    """``draw_buffer_threshold`` (bytes): see ``_run_mnist_nuts_batched``."""
     from .diagnostics import calibration_report, posterior_predictive_probs
     from .inference import nuts
     from .inference.sampling import init_chain_positions
@@ -278,13 +382,11 @@ def cmd_mnist_nuts(args) -> dict:
         Xn, yn = datasets.digits()
         provenance = "sklearn-digits"
     else:
-        Xn, yn = datasets.mnist()
-        provenance = datasets.mnist_provenance()
-    X = torch.from_numpy(Xn).to(dev)
-    yi = torch.from_numpy(yn.astype(np.int64)).to(dev)
-    y = torch.nn.functional.one_hot(yi, NUM_CLASSES).to(torch.float32)
+        Xn, yn = datasets.mnist(args.data)
+        provenance = datasets.mnist_provenance(args.data)
+    X, yi, y = _labelled(Xn, yn, NUM_CLASSES, dev)
     model = Softmax(dim=X.shape[1], n_classes=NUM_CLASSES, alpha=args.alpha)
-    gen = torch.Generator(device=dev).manual_seed(int(args.seed))
+    gen = _generator(dev, args.seed)
 
     setup_s, setup_cached = 0.0, False
     if args.diag_mass:
@@ -304,15 +406,16 @@ def cmd_mnist_nuts(args) -> dict:
         if args.per_chain_nuts:
             # Laplace chain init in parameter space (the batched path draws
             # its own e ~ N(0, I) whitened init, the identical distribution)
-            eps = torch.randn((args.chains,) + tuple(metric.d_aug.shape), generator=gen,
-                              device=dev)
+            eps = streams.randn((args.chains,) + tuple(metric.d_aug.shape), generator=gen,
+                                device=dev)
             positions = metric.sample_position({k: v[None] for k, v in qmap.items()}, eps)
         setup_s = time.perf_counter() - t0
 
     if metric is not None and not args.per_chain_nuts:
         # the default: lockstep chain-batched NUTS on the fused value+grad,
         # one pass over the data per leaf for all chains
-        run_s, extra, dev_res = _run_mnist_nuts_batched(args, model, metric, qmap, X, y, gen)
+        run_s, extra, dev_res = _run_mnist_nuts_batched(args, model, metric, qmap, X, y, gen,
+                                                        draw_buffer_threshold)
         pm, pp, agg = dev_res["pm"], dev_res["pp"], dev_res["agg"]
         agg["diag_s"] = round(dev_res["diag_s"], 2)
     else:
@@ -320,13 +423,13 @@ def cmd_mnist_nuts(args) -> dict:
         # fused kernel: the slow cross-check of the default path
         logdensity = model.make_logdensity(batch=(X, y))
         kernel = nuts.build_kernel(logdensity, max_tree_depth=args.max_depth, metric=metric)
-        draws, run_s = _run_chains(args, lambda p: nuts.init(p, logdensity), kernel,
-                                   positions, gen, adapt_mass=adapt_mass)
+        draws, streamed, run_s = _run_chains(args, lambda p: nuts.init(p, logdensity), kernel,
+                                             positions, gen, adapt_mass=adapt_mass)
         extra = {"sampler": "per-chain-nuts"}
         pm = {k: v.mean(dim=(0, 1)) for k, v in draws.items()}
         pp = posterior_predictive_probs(lambda p, x: model.predict(p, x, prob=True), draws, X,
                                         max_draws=32)
-        agg = _save_and_summarize(draws, run_s)
+        agg = _save_and_summarize(args, draws, run_s, already_saved=streamed)
     acc = float((model.predict(pm, X) == yi).to(torch.float32).mean())
     cal = calibration_report(pp, yi)
     agg["run_s"] = round(run_s, 2)
@@ -374,7 +477,7 @@ def cmd_mnist_mlp_sgmcmc(args) -> dict:
 
     _refuse_unported(args)
     dev = _device(args)
-    X, yi, y = _labelled(*datasets.mnist(), NUM_CLASSES, dev)
+    X, yi, y = _labelled(*datasets.mnist(args.data), NUM_CLASSES, dev)
     n = X.shape[0]
     model = DropoutMLP(dim=X.shape[1], hidden=args.hidden, n_classes=NUM_CLASSES,
                        alpha=args.alpha, p_drop=args.p_drop)
@@ -452,7 +555,7 @@ def cmd_mnist_mlp_sgmcmc(args) -> dict:
 
     agg = {
         "workload": f"mnist-mlp-{args.algorithm}",
-        "dataset": datasets.mnist_provenance(),
+        "dataset": datasets.mnist_provenance(args.data),
         "dropout": dropout,
         "p_drop": args.p_drop,
         "chains": chains,
@@ -496,8 +599,8 @@ def cmd_mnist_vi(args) -> dict:
         Xn, yn = datasets.digits()
         provenance = "sklearn-digits"
     else:
-        Xn, yn = datasets.mnist()
-        provenance = datasets.mnist_provenance()
+        Xn, yn = datasets.mnist(args.data)
+        provenance = datasets.mnist_provenance(args.data)
     X, yi, y = _labelled(Xn, yn, NUM_CLASSES, dev)
     n = X.shape[0]
 
@@ -553,7 +656,7 @@ def cmd_plantvillage_smc(args) -> dict:
 
     _refuse_unported(args)
     dev = _device(args)
-    Xn, yn = datasets.plantvillage_features(n=args.n_data)
+    Xn, yn = datasets.plantvillage_features(args.data, n=args.n_data)
     k = int(yn.max()) + 1
     X, yi, y = _labelled(Xn, yn, k, dev)
     model = Softmax(dim=X.shape[1], n_classes=k, alpha=args.alpha)
@@ -602,7 +705,7 @@ def cmd_plantvillage_smc(args) -> dict:
         "workload": "plantvillage-smc",
         "mutation": args.mutation,
         "shard_particles": bool(args.shard_particles),
-        "dataset": datasets.plantvillage_provenance(),
+        "dataset": datasets.plantvillage_provenance(args.data),
         "predictive_accuracy": cal["accuracy"],
         "predictive_ece": round(cal["ece"], 4),
         "train_accuracy": _accuracy(model.predict(pm, X), yi),
@@ -619,7 +722,7 @@ def cmd_plantvillage_smc(args) -> dict:
     return agg
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="dhmc-torch",
                                      description="PyTorch/CUDA Bayesian MCMC workloads")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -641,7 +744,8 @@ def main(argv=None):
     p = sub.add_parser("mnist-nuts")
     _common(p)
     p.add_argument("--data", type=str, default=None,
-                   help="an MNIST HDF5 file (not ported yet: the synthetic set is used)")
+                   help="an MNIST HDF5 file (X_train / y_train); without one the "
+                        "synthetic set is used")
     p.add_argument("--dataset", choices=["auto", "digits"], default="auto",
                    help="'digits' = scikit-learn's real 8x8 pixels (1797 x 64) "
                         "instead of the synthetic MNIST")
@@ -656,7 +760,8 @@ def main(argv=None):
                         "on the MNIST-scale whitened posterior 0.5 is the ESS/s "
                         "optimum, but on sklearn-digits 0.5 halves min ESS")
     p.add_argument("--chain-shards", type=int, default=1,
-                   help=">1: lay the chain axis across devices (not ported yet)")
+                   help=">1: lay the chain axis across devices (not ported yet: the "
+                        "parallel/ layer)")
     p.add_argument("--per-chain-nuts", action="store_true",
                    help="use the per-chain NUTS kernel on the plain value+grad "
                         "instead of the default lockstep chain-batched kernel on "
@@ -666,14 +771,16 @@ def main(argv=None):
 
     p = sub.add_parser("mnist-mlp-sgmcmc")
     p.add_argument("--data", type=str, default=None,
-                   help="an MNIST HDF5 file (not ported yet: the synthetic set is used)")
+                   help="an MNIST HDF5 file (X_train / y_train); without one the "
+                        "synthetic set is used")
     p.add_argument("--algorithm", choices=["sgld", "sghmc"], default="sghmc")
     p.add_argument("--chains", type=int, default=16,
                    help="SG-MCMC chains, advanced together (jittered starts around the "
                         "SGD mode; enables ESS / split-R-hat diagnostics)")
     p.add_argument("--chain-jitter", type=float, default=0.02)
     p.add_argument("--data-shards", type=int, default=1,
-                   help=">1: minibatch gradients summed across data shards (not ported yet)")
+                   help=">1: minibatch gradients summed across data shards (not ported "
+                        "yet: the parallel/ layer)")
     p.add_argument("--hidden", type=int, default=256)
     p.add_argument("--alpha", type=float, default=1.0)
     p.add_argument("--p-drop", type=float, default=0.1)
@@ -695,7 +802,8 @@ def main(argv=None):
 
     p = sub.add_parser("mnist-vi")
     p.add_argument("--data", type=str, default=None,
-                   help="an MNIST HDF5 file (not ported yet: the synthetic set is used)")
+                   help="an MNIST HDF5 file (X_train / y_train); without one the "
+                        "synthetic set is used")
     p.add_argument("--dataset", choices=["auto", "digits"], default="auto")
     p.add_argument("--model", choices=["softmax", "mlp"], default="softmax")
     p.add_argument("--hidden", type=int, default=256)
@@ -715,7 +823,8 @@ def main(argv=None):
 
     p = sub.add_parser("plantvillage-smc")
     p.add_argument("--data", type=str, default=None,
-                   help="a features HDF5 file (not ported yet: the synthetic set is used)")
+                   help="a conv-feature HDF5 file (features / labels); without one the "
+                        "synthetic set is used")
     p.add_argument("--n-data", type=int, default=5000)
     p.add_argument("--alpha", type=float, default=1.0)
     p.add_argument("--particles", type=int, default=128)
@@ -727,13 +836,18 @@ def main(argv=None):
     p.add_argument("--batch-size", type=int, default=512,
                    help="minibatch size for --mutation sghmc")
     p.add_argument("--shard-particles", action="store_true",
-                   help="lay the particle axis across devices (not ported yet)")
+                   help="lay the particle axis across devices (not ported yet: the "
+                        "parallel/ layer)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu only when named)")
     p.set_defaults(fn=cmd_plantvillage_smc)
 
-    args = parser.parse_args(argv)
+    return parser
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
     args.fn(args)
 
 

@@ -7,12 +7,14 @@ from .calibration import (
     predictive_nll,
     reliability_bins,
 )
-from .ess import effective_sample_size
+from .ess import effective_sample_size, ess_pytree
 from .rhat import potential_scale_reduction, split_rhat, split_rhat_pytree
-from .summary import summarize
+from .summary import draw_diagnostics, summarize
 
 __all__ = [
     "effective_sample_size",
+    "ess_pytree",
+    "draw_diagnostics",
     "potential_scale_reduction",
     "split_rhat",
     "split_rhat_pytree",

@@ -44,14 +44,17 @@ def posterior_predictive_probs(predict_prob_fn: Callable, draws, X: torch.Tensor
 
     predict_prob_fn: (params, X) -> (N, K) probabilities.  draws: a dict of
     (chains, num_draws, ...) tensors.  Every ``total // max_draws``-th of
-    the flattened draws is used, at most ``max_draws`` of them."""
-    flat = {k: v.reshape((-1,) + tuple(v.shape[2:])) for k, v in draws.items()}
-    total = next(iter(flat.values())).shape[0]
+    the flattened draws is used, at most ``max_draws`` of them.  The draws
+    may lie elsewhere than ``X`` (a host buffer): only the draws used are
+    moved, one at a time."""
+    chains, num_draws = next(iter(draws.values())).shape[:2]
+    total = chains * num_draws
     take = min(max_draws, total)
     stride = max(total // take, 1)
     acc = None
     for i in range(take):
-        p = predict_prob_fn({k: v[i * stride] for k, v in flat.items()}, X)
+        c, t = divmod(i * stride, num_draws)
+        p = predict_prob_fn({k: v[c, t].to(X.device) for k, v in draws.items()}, X)
         acc = p if acc is None else acc + p
     return acc / take
 

@@ -84,3 +84,11 @@ def effective_sample_size(samples: torch.Tensor,
     if scalar_input:
         return ess[0]
     return ess.reshape(param_shape)
+
+
+def ess_pytree(positions):
+    """ESS of every leaf of a dict of (chains, draws, ...) tensors (or of one
+    tensor)."""
+    if isinstance(positions, dict):
+        return {k: effective_sample_size(v) for k, v in positions.items()}
+    return effective_sample_size(positions)

@@ -28,6 +28,7 @@ from typing import Any, Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..ops import streams
 from ..ops.adaptation import dual_averaging_init, dual_averaging_update
 from ..ops.integrators import IntegratorState, trajectory, velocity_verlet_batched
 from ..ops.metrics import batched_diagonal_metric
@@ -134,7 +135,7 @@ def run_chees_warmup(
         accept_prob = torch.clamp(torch.exp(delta), max=1.0)            # (C,)
         is_divergent = delta.abs() > divergence_threshold
 
-        u = torch.rand(accept_prob.shape, generator=generator, **f32)
+        u = streams.rand(accept_prob.shape, generator=generator, **f32)
         accept = u < accept_prob
         new_state = HMCState(
             tree_where_bcast(accept, end.position, state.position),

@@ -19,6 +19,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ..ops import streams
 from ..ops.integrators import (IntegratorState, lift_value_and_grad, trajectory,
                                velocity_verlet_batched)
 from ..ops.metrics import Metric, diagonal_metric
@@ -46,7 +47,7 @@ def _uniforms(given: Optional[torch.Tensor], like: torch.Tensor,
         return given
     if generator is None:
         raise ValueError(f"pass {name}= or an explicit generator=")
-    return torch.rand(like.shape, generator=generator, dtype=like.dtype, device=like.device)
+    return streams.rand(like.shape, generator=generator, dtype=like.dtype, device=like.device)
 
 
 def _build_step(value_and_grad_fn: Callable, num_integration_steps: int,

@@ -16,6 +16,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ..ops import streams
 from ..ops.integrators import lift_value
 from ..ops.tree import Params, tree_batch_ravel, tree_where_bcast
 
@@ -47,10 +48,10 @@ def sample_draws(num_chains: int, dim: int, generator: torch.Generator, device,
         raise ValueError("pass draws= or an explicit generator=")
     f = dict(generator=generator, device=device)
     return MHDraws(
-        log_factor=2.0 * torch.rand((num_chains,), dtype=dtype, **f) - 1.0,
-        noise=torch.randn((num_chains, dim), dtype=dtype, **f),
-        coordinate=torch.randint(0, dim, (num_chains,), **f),
-        accept_uniform=torch.rand((num_chains,), dtype=dtype, **f),
+        log_factor=2.0 * streams.rand((num_chains,), dtype=dtype, **f) - 1.0,
+        noise=streams.randn((num_chains, dim), dtype=dtype, **f),
+        coordinate=streams.randint(0, dim, (num_chains,), **f),
+        accept_uniform=streams.rand((num_chains,), dtype=dtype, **f),
     )
 
 

@@ -39,6 +39,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ..ops import streams
 from ..ops.tree import Params, tree_batch_ravel
 from .nuts import NUTSInfo, NUTSState, _bit_count, _trailing_ones
 
@@ -57,13 +58,15 @@ class NUTSDraws(NamedTuple):
 
 def sample_draws(num_chains: int, dim: int, max_tree_depth: int,
                  generator: torch.Generator, device, dtype=torch.float32) -> NUTSDraws:
-    """A step's draws from ``generator``."""
+    """A step's draws from ``generator``; the chain axis is the last one of
+    every field but ``momentum``."""
     f = dict(generator=generator, device=device, dtype=dtype)
     return NUTSDraws(
-        momentum=torch.randn((num_chains, dim), **f),
-        direction=torch.rand((max_tree_depth, num_chains), **f) < 0.5,
-        leaf_uniform=torch.rand((max_tree_depth, 2 ** (max_tree_depth - 1), num_chains), **f),
-        bias_uniform=torch.rand((max_tree_depth, num_chains), **f),
+        momentum=streams.randn((num_chains, dim), **f),
+        direction=streams.rand((max_tree_depth, num_chains), chain_axis=1, **f) < 0.5,
+        leaf_uniform=streams.rand((max_tree_depth, 2 ** (max_tree_depth - 1), num_chains),
+                                  chain_axis=2, **f),
+        bias_uniform=streams.rand((max_tree_depth, num_chains), chain_axis=1, **f),
     )
 
 

@@ -3,17 +3,23 @@
 ``sample_posterior`` runs warmup and sampling for every chain at once (the
 JAX package vmaps a per-chain program; here the chain axis is explicit and
 every chain has its own draws, step size and inverse mass).  The streaming
-forms sample in chunks and keep the draws on the device block by block
-(``DeviceBackend``).  File backends, checkpoints, resume and chain sharding
-are not ported yet (ROADMAP slice 5).
+forms sample in chunks and hand each chunk's draws to a backend: a file
+(io.backend.HDF5Backend), a bounded buffer on the device or in host memory
+(``DeviceBackend``), or both (``TeeDeviceBackend``).  With a checkpoint file
+a streaming run can be stopped and resumed, and then appends exactly the
+draws the uninterrupted run would have: chunk i draws only from the
+generator of (run seed, sample stream, i) (ops/streams.py).  Sharding the
+chain axis over processes (``mesh=``) waits for the ``parallel/`` layer.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, NamedTuple, Optional
+import os
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
+from ..ops import streams
 from ..ops.tree import Params, tree_ones_like, tree_randn_like
 from .base import run_inference
 from .warmup import run_warmup
@@ -97,8 +103,16 @@ def init_chain_positions(init_params_fn: Callable, num_chains: int, jitter: floa
                          generator: torch.Generator, device) -> Params:
     """Per-chain initial positions from a model's ``init_params(generator,
     device)``, optionally jittered by ``jitter`` * N(0, I): overdispersed
-    starts make R-hat meaningful."""
-    draws = [init_params_fn(generator, device) for _ in range(num_chains)]
+    starts make R-hat meaningful.  A generator that carries a chain block
+    (ops.streams) draws every chain of the run and keeps its own."""
+    block = streams.block_of(generator)
+    if block is not None and block.size != num_chains:
+        raise ValueError(f"num_chains={num_chains}, the generator's block {block} "
+                         f"has {block.size}")
+    total = num_chains if block is None else block.global_chains
+    draws = [init_params_fn(generator, device) for _ in range(total)]
+    if block is not None:
+        draws = draws[block.start:block.stop]
     positions = {k: torch.stack([d[k] for d in draws]) for k in draws[0]}
     if jitter > 0.0:
         noise = tree_randn_like(positions, generator)
@@ -106,38 +120,139 @@ def init_chain_positions(init_params_fn: Callable, num_chains: int, jitter: floa
     return positions
 
 
-class DeviceBackend:
-    """Keeps every appended block (a dict of (chunk, C, ...) tensors, draws
-    leading) where it lies, on the device; ``draws()`` joins them into
-    (C, T, ...) tensors for the diagnostics."""
+def draw_bytes(num_chains: int, num_samples: int, position: Params) -> int:
+    """Bytes of the (chains, draws, parameters) float32 draw tensor of a run;
+    ``position`` is a chain-batched position dict (leaves (C, ...))."""
+    per_chain = sum(v[0].numel() for v in position.values())
+    return 4 * int(num_chains) * int(num_samples) * per_chain
 
-    def __init__(self):
-        self.device_blocks: List[Params] = []
+
+def choose_draw_storage(num_bytes: int, device, threshold_bytes: Optional[int] = None) -> str:
+    """Where a run's draws are kept: ``"device"`` while the draw tensor is at
+    most ``threshold_bytes``, else ``"host"``.  The default threshold is a
+    quarter of the device's free memory (``torch.cuda.mem_get_info``); on the
+    CPU, where the device's memory is the host's, there is none."""
+    device = torch.device(device)
+    if threshold_bytes is None:
+        if device.type != "cuda":
+            return "device"
+        threshold_bytes = torch.cuda.mem_get_info(device)[0] // 4
+    return "device" if num_bytes <= threshold_bytes else "host"
+
+
+class DeviceBackend:
+    """A bounded draw buffer: every appended block (a dict of (chunk, C, ...)
+    tensors, draws leading) is written into ONE preallocated buffer per leaf,
+    and ``draws()`` hands out views of it, (C, T, ...), for the diagnostics:
+    no list of blocks, no second copy.
+
+    ``num_draws``: the run's total, which sizes the buffer at the first
+    append; without it the buffer doubles when it is full.  ``storage``:
+    ``"device"`` keeps the buffer where the blocks lie, laid out (C, T, ...)
+    so that ``draws()`` is contiguous; ``"host"`` keeps it in host memory
+    (pinned when the blocks come from a card, one asynchronous copy per
+    block), laid out (T, C, ...), and ``draws()`` is a strided view for
+    blockwise diagnostics (diagnostics.summary.draw_diagnostics).
+
+    ``num_draws()`` and ``truncate(n)`` let it sit under a checkpoint."""
+
+    def __init__(self, num_draws: Optional[int] = None, storage: str = "device"):
+        if storage not in ("device", "host"):
+            raise ValueError(f"storage must be 'device' or 'host', got {storage!r}")
+        self.storage = storage
+        self._capacity = num_draws
+        self._count = 0
+        self._buffers: Optional[Params] = None
+
+    def _allocate(self, block: Params, capacity: int) -> Params:
+        out = {}
+        for k, v in block.items():
+            tail = tuple(v.shape[1:])                       # (C, ...)
+            if self.storage == "host":
+                out[k] = torch.empty((capacity,) + tail, dtype=v.dtype, pin_memory=v.is_cuda)
+            else:
+                out[k] = torch.empty(tail[:1] + (capacity,) + tail[1:], dtype=v.dtype,
+                                     device=v.device)
+        return out
+
+    def _time_axis(self) -> int:
+        return 0 if self.storage == "host" else 1
 
     def append(self, block: Params) -> None:
-        self.device_blocks.append(block)
+        take = next(iter(block.values())).shape[0]
+        need = self._count + take
+        if self._buffers is None:
+            self._capacity = max(self._capacity or 0, need)
+            self._buffers = self._allocate(block, self._capacity)
+        elif need > self._capacity:
+            # the total was not given (or was exceeded): double
+            self._capacity = max(2 * self._capacity, need)
+            grown = self._allocate(block, self._capacity)
+            axis = self._time_axis()
+            for k, old in self._buffers.items():
+                grown[k].narrow(axis, 0, self._count).copy_(old.narrow(axis, 0, self._count))
+            self._buffers = grown
+        for k, v in block.items():
+            if self.storage == "host":
+                self._buffers[k][self._count:need].copy_(v, non_blocking=True)
+            else:
+                self._buffers[k][:, self._count:need] = v.transpose(0, 1)
+        self._count = need
+
+    def num_draws(self) -> int:
+        return self._count
+
+    def truncate(self, n: int) -> None:
+        """Forget the draws past the first ``n`` (no-op when there are fewer)."""
+        self._count = min(self._count, int(n))
 
     def draws(self) -> Params:
-        keys = self.device_blocks[0].keys()
-        return {k: torch.cat([b[k] for b in self.device_blocks]).transpose(0, 1)
-                for k in keys}
+        """The draws so far as (C, T, ...) views of the buffer."""
+        if self._buffers is None:
+            raise ValueError("no draws were appended")
+        if self.storage == "host":
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()        # the asynchronous copies have landed
+            return {k: v[:self._count].transpose(0, 1) for k, v in self._buffers.items()}
+        return {k: v[:, :self._count] for k, v in self._buffers.items()}
 
 
-def _refuse_unported(backend, checkpoint_path, resume) -> None:
-    if checkpoint_path is not None or resume:
-        raise NotImplementedError(
-            "checkpoint_path/resume: checkpoints are not ported yet (ROADMAP slice 5)")
-    if not isinstance(backend, DeviceBackend):
-        raise NotImplementedError(
-            "only DeviceBackend is ported; file backends (io/backend.py) are not "
-            "ported yet (ROADMAP slice 5)")
+class TeeDeviceBackend(DeviceBackend):
+    """A ``DeviceBackend`` that also forwards every block to a persistent
+    file backend: the buffer feeds the diagnostics where the draws lie, the
+    file is what a resumed run continues.  Closing it closes the file."""
+
+    def __init__(self, file_backend=None, num_draws: Optional[int] = None,
+                 storage: str = "device"):
+        super().__init__(num_draws, storage)
+        self._file = file_backend
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        if self._file is not None:
+            self._file.close()
+
+    def append(self, block: Params) -> None:
+        super().append(block)
+        if self._file is not None:
+            self._file.append(block)
+
+    def num_draws(self) -> int:
+        return self._file.num_draws() if self._file is not None else super().num_draws()
+
+    def truncate(self, n: int) -> None:
+        super().truncate(n)
+        if self._file is not None:
+            self._file.truncate(n)
 
 
 def sample_posterior_streaming(
     init_fn: Callable,
     kernel: Callable,
     initial_positions: Params,
-    backend: DeviceBackend,
+    backend,                    # anything with .append: io.HDF5Backend, DeviceBackend, ...
     num_samples: int,
     chunk_size: int = 100,
     num_warmup: int = 500,
@@ -152,15 +267,35 @@ def sample_posterior_streaming(
 ):
     """Warm up once, then sample in chunks, appending each chunk's positions
     (chunk, C, ...), draws leading, to ``backend``.  Returns (final_states,
-    step_size, inv_mass, num_appended)."""
-    _refuse_unported(backend, checkpoint_path, resume)
+    step_size, inv_mass, num_appended).
+
+    ``generator`` gives the run its seed (``generator.initial_seed()``), its
+    device and its chain block; nothing is drawn from it.  Warmup draws from
+    the generator of (seed, warmup stream), chunk i from that of (seed,
+    sample stream, i).
+
+    ``checkpoint_path``: after every chunk the resumable state (chain states,
+    adapted step sizes and inverse mass, the seed, the count of draws done)
+    is written atomically (io/checkpoint.py).  With ``resume=True`` and an
+    existing checkpoint, warmup is SKIPPED, the saved seed replaces the
+    caller's, and sampling goes on at the next chunk, so an interrupted and
+    resumed run appends exactly the draws of the uninterrupted one.  A
+    chunk's append and its checkpoint write are two operations; after a crash
+    between them the backend is one chunk ahead of the checkpoint's counter,
+    and the resume truncates it back (``backend.truncate``)."""
     _num_chains(initial_positions, num_chains)
-    states, step_sizes, inv_mass = _warm(init_fn, kernel, initial_positions, num_warmup,
-                                         initial_step_size, target_acceptance, adapt_mass,
-                                         generator)
-    states, appended, _ = sample_batched_streaming(
-        kernel, states, step_sizes, inv_mass, backend, num_samples=num_samples,
-        chunk_size=chunk_size, generator=generator)
+    if resume and checkpoint_path is not None and os.path.exists(checkpoint_path):
+        # placeholders of the right shapes: the checkpoint's values replace them
+        states = init_fn(initial_positions)
+        step_sizes = torch.zeros_like(states.logdensity)
+        inv_mass = tree_ones_like(initial_positions)
+    else:
+        states, step_sizes, inv_mass = _warm(
+            init_fn, kernel, initial_positions, num_warmup, initial_step_size,
+            target_acceptance, adapt_mass, streams.derive(generator, streams.STREAM_WARMUP))
+    states, appended, _, step_sizes, inv_mass = _stream_chunks(
+        kernel, states, step_sizes, inv_mass, backend, num_samples, chunk_size, None,
+        checkpoint_path, resume, generator)
     return states, step_sizes, inv_mass, appended
 
 
@@ -169,7 +304,7 @@ def sample_batched_streaming(
     states,                 # chain-batched state (leaves (C, ...))
     step_sizes: torch.Tensor,
     inv_mass: Params,
-    backend: DeviceBackend,
+    backend,
     num_samples: int,
     chunk_size: int = 100,
     transform: Optional[Callable] = None,
@@ -183,20 +318,76 @@ def sample_batched_streaming(
 
     Each chunk's positions (C, chunk, ...) go through ``transform`` (e.g.
     unwhitening back to parameter space) and are appended to ``backend``
-    with draws leading.  Returns (final_states, num_appended,
-    info_summaries): one entry per chunk, the kernel's info averaged over
-    (chunk, chains) as floats (one host sync per chunk)."""
-    _refuse_unported(backend, checkpoint_path, resume)
-    if mesh is not None:
-        raise NotImplementedError("mesh: chain sharding is not ported yet (ROADMAP slice 5)")
+    with draws leading.  Returns (final_states, num_appended_total,
+    info_summaries): one entry per chunk run in THIS call, the kernel's info
+    averaged over (chunk, chains) as floats (one host sync per chunk).
 
+    Random numbers: ``generator`` gives the run its seed, device and chain
+    block, and nothing is drawn from it; chunk i draws from the generator of
+    (seed, sample stream, i).  The draw sequence therefore depends on the
+    chunk size, and a resumed run must use the original one: resuming at a
+    draw count that is not a chunk boundary raises.  The last chunk may be
+    partial; it then runs only the steps it keeps (the JAX package runs a
+    full chunk and keeps the first ``take`` draws; a partial chunk is always
+    the last, so no later draw can tell the difference).
+
+    ``checkpoint_path`` / ``resume``: as in ``sample_posterior_streaming``.
+    The checkpoint holds the adapted step sizes and the inverse mass, so a
+    resuming caller may skip warmup and pass placeholders: the saved ones
+    take precedence (a checkpoint without an inverse mass keeps the
+    caller's).  Resuming a finished run appends nothing.
+
+    ``mesh``: sharding the chain axis over processes is not ported yet."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh: chain sharding is not ported yet (ROADMAP queue 1, the parallel/ layer)")
+    states, appended, info_summaries, _, _ = _stream_chunks(
+        kernel, states, step_sizes, inv_mass, backend, num_samples, chunk_size, transform,
+        checkpoint_path, resume, generator)
+    return states, appended, info_summaries
+
+
+def _stream_chunks(kernel, states, step_sizes, inv_mass, backend, num_samples, chunk_size,
+                   transform, checkpoint_path, resume, generator):
+    """The chunk loop of both streaming samplers.  Returns (states, appended,
+    info_summaries, step_sizes, inv_mass), the last two as resumed."""
+    from ..io.checkpoint import checkpoint_groups, load_checkpoint, save_checkpoint
+
+    if generator is None:
+        raise ValueError("a streaming run needs an explicit torch.Generator for its seed")
+    seed, device, block = generator.initial_seed(), generator.device, streams.block_of(generator)
     appended = 0
+
+    if resume and checkpoint_path is not None and os.path.exists(checkpoint_path):
+        # a checkpoint from before the inverse mass was stored carries only
+        # the step sizes: resume it with the caller's inverse mass
+        extras_like = {"step_size": step_sizes}
+        if "inv_mass" in checkpoint_groups(checkpoint_path):
+            extras_like["inv_mass"] = inv_mass
+        states, seed, appended, extras = load_checkpoint(checkpoint_path, states,
+                                                         extras_like=extras_like)
+        step_sizes = extras["step_size"]
+        inv_mass = extras.get("inv_mass", inv_mass)
+        if appended < num_samples and appended % chunk_size != 0:
+            raise ValueError(
+                f"resume draw counter {appended} is not a multiple of chunk_size "
+                f"{chunk_size}: the random streams are per chunk index, so another chunk "
+                f"size would change or repeat the draw sequence; use the original chunk size")
+        # after a crash between an append and its checkpoint write: drop the
+        # draws past the checkpoint's counter
+        if hasattr(backend, "truncate"):
+            backend.truncate(appended)
+
     info_summaries = []
-    while appended < num_samples:
+    n_chunks = -(-num_samples // chunk_size)
+    # a finished run resumes as a no-op
+    start = n_chunks if appended >= num_samples else appended // chunk_size
+    for i in range(start, n_chunks):
+        gen = streams.chunk_generator(seed, streams.STREAM_SAMPLE, i, device, block)
         take = min(chunk_size, num_samples - appended)
         positions, infos = [], []
         for _ in range(take):
-            states, info = kernel(states, step_sizes, inv_mass, generator=generator)
+            states, info = kernel(states, step_sizes, inv_mass, generator=gen)
             positions.append(states.position)
             infos.append(info)
         pos = {k: torch.stack([p[k] for p in positions], dim=1) for k in positions[0]}
@@ -206,4 +397,7 @@ def sample_batched_streaming(
         fields = [torch.stack(f).to(torch.float32).mean() for f in zip(*infos)]
         info_summaries.append(type(infos[0])(*torch.stack(fields).tolist()))
         appended += take
-    return states, appended, info_summaries
+        if checkpoint_path is not None:
+            save_checkpoint(checkpoint_path, states, seed=seed, step=appended,
+                            extras={"step_size": step_sizes, "inv_mass": inv_mass})
+    return states, appended, info_summaries, step_sizes, inv_mass

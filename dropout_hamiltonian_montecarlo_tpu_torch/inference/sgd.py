@@ -13,6 +13,7 @@ from typing import Callable, Iterable, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..ops import streams
 from ..ops.tree import Params, tree_batch_ravel, tree_zeros_like
 from .sgmcmc import Batch, _as_scalar, _make_vag
 
@@ -49,8 +50,11 @@ def build_sgd_kernel(logdensity_fn: Callable[[Params, Batch], torch.Tensor],
              generator: Optional[torch.Generator] = None):
         X = batch[0]
         if dropout_rate > 0.0:
-            mask = draws.mask if draws is not None else (
-                torch.rand(X.shape, generator=generator, device=X.device) < 1.0 - dropout_rate)
+            # a per-chain batch (C, B, D) has the chain axis first; a shared
+            # one (B, D) has none
+            mask = draws.mask if draws is not None else streams.keep_mask(
+                X.shape, 1.0 - dropout_rate, generator=generator, device=X.device,
+                chain_axis=0 if X.dim() == 3 else None)
             batch = (X * mask.to(X.dtype),) + tuple(batch[1:])
         value, grad = vag(state.position, batch, None)
         step_size = _as_scalar(step_size, state.position)
@@ -78,7 +82,7 @@ def fit(kernel: Callable, initial_state: SGDState, data: Batch, batch_size: int,
     losses = leaf.new_empty((chains, num_steps))
     for i in range(num_steps):
         given = next(draws) if draws is not None else None
-        idx = given.indices if given is not None else torch.randint(
+        idx = given.indices if given is not None else streams.randint(
             0, n_data, (chains, batch_size), generator=generator, device=leaf.device)
         state, loss = kernel(state, tuple(d[idx] for d in data), eps, draws=given,
                              generator=generator)

@@ -20,6 +20,7 @@ from typing import Any, Callable, Iterable, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..ops import streams
 from ..ops.tree import Params, tree_batch_randn_like, tree_batch_ravel, tree_zeros_like
 
 Batch = Tuple[torch.Tensor, ...]
@@ -324,7 +325,7 @@ def run_sgmcmc_chains(
 
     def one_step(state, t):
         given = next(draws) if draws is not None else None
-        idx = given.indices if given is not None else torch.randint(
+        idx = given.indices if given is not None else streams.randint(
             0, n_data, (num_chains, batch_size), generator=generator, device=device)
         batch = tuple(d[idx] for d in data)
         state, info = kernel(state, batch, step_size_schedule(t), draws=given,

@@ -21,6 +21,7 @@ from typing import Any, Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from ..ops import streams
 from ..ops.integrators import lift_value
 from ..ops.tree import Params, tree_ones_like
 from .sgmcmc import SGMCMCDraws, build_sghmc_kernel, sghmc_init
@@ -77,7 +78,9 @@ def systematic_resample(log_weights: torch.Tensor, *, u0: Optional[torch.Tensor]
     if u0 is None:
         if generator is None:
             raise ValueError("pass u0= or an explicit generator=")
-        u0 = torch.rand((), generator=generator, device=cum.device) * (1.0 / n)
+        # one offset for all particles: no particle axis, the same on every block
+        u0 = streams.rand((), generator=generator, device=cum.device,
+                          chain_axis=None) * (1.0 / n)
     points = u0 + torch.arange(n, dtype=torch.float32, device=cum.device) / n
     # cum[-1] can round below 1 in float32: a point past it clips to the last
     # particle, as an out-of-range gather index does in the JAX package
@@ -203,8 +206,9 @@ def run_tempered_smc(
             states = sghmc_init(particles)
             for i in range(num_mcmc_steps):
                 given = rounds[i] if rounds is not None else None
-                idx = given.indices if given is not None else torch.randint(
-                    0, data_size, (batch_size,), generator=generator, device=device)
+                idx = given.indices if given is not None else streams.randint(
+                    0, data_size, (batch_size,), generator=generator, device=device,
+                    chain_axis=None)
                 batch = tuple(d[idx] for d in data)
                 if not batch_batched:     # one particle's density: vmapped over views
                     batch = tuple(b.expand((n,) + b.shape) for b in batch)

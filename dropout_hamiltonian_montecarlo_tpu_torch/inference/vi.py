@@ -15,6 +15,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ..ops import streams
 from ..ops.tree import Params, tree_batch_ravel
 from .sgmcmc import Batch
 
@@ -56,10 +57,9 @@ def _ravel(tree: Params):
 
 
 def _randn_draws(like: Params, num: int, generator: Optional[torch.Generator]) -> Params:
-    if generator is None:
-        raise ValueError("a random draw needs an explicit torch.Generator")
-    return {k: torch.randn((num,) + v.shape, generator=generator, dtype=v.dtype,
-                           device=v.device) for k, v in like.items()}
+    # one distribution, no chain axis: the draws are the same on every block
+    return {k: streams.randn((num,) + v.shape, generator=generator, dtype=v.dtype,
+                             device=v.device, chain_axis=None) for k, v in like.items()}
 
 
 def build_kernel(logdensity_fn: Callable[[Params, Batch], torch.Tensor],
@@ -92,10 +92,8 @@ def build_kernel(logdensity_fn: Callable[[Params, Batch], torch.Tensor],
             return {k: v[0] for k, v in batch_unravel(z[None]).items()}
 
         if epsilons is None:
-            if generator is None:
-                raise ValueError("a random draw needs an explicit torch.Generator")
-            eps_mat = torch.randn((num_mc_samples,) + mu.shape, generator=generator,
-                                  dtype=mu.dtype, device=mu.device)
+            eps_mat = streams.randn((num_mc_samples,) + mu.shape, generator=generator,
+                                    dtype=mu.dtype, device=mu.device, chain_axis=None)
         else:
             eps_mat = tree_batch_ravel(epsilons)[0]
         with torch.enable_grad():
@@ -133,7 +131,8 @@ def fit(kernel: Callable, initial_state: MeanFieldState, data: Batch, batch_size
     state = initial_state
     losses = torch.empty((num_steps,), dtype=torch.float32, device=leaf.device)
     for i in range(num_steps):
-        idx = torch.randint(0, n_data, (batch_size,), generator=generator, device=leaf.device)
+        idx = streams.randint(0, n_data, (batch_size,), generator=generator,
+                              device=leaf.device, chain_axis=None)
         state, losses[i] = kernel(state, tuple(d[idx] for d in data), generator=generator)
     return state, losses
 

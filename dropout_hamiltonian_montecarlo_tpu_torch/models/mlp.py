@@ -22,6 +22,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..ops import streams
 from .base import Model, Params
 
 
@@ -61,10 +62,12 @@ class DropoutMLP(Model):
                    generator: torch.Generator) -> DropoutMasks:
         """Fresh Bernoulli(1 - p_drop) keep-masks for one forward of
         ``params`` on ``X``."""
-        shape = tuple(params["W1"].shape[:-2] if X.dim() == 2 else X.shape[:-2])
-        shape += (X.shape[-2], self.hidden)
-        # one draw and one compare for the three masks
-        keep = torch.rand((3,) + shape, generator=generator, device=X.device) < 1.0 - self.p_drop
+        lead = tuple(params["W1"].shape[:-2] if X.dim() == 2 else X.shape[:-2])
+        shape = (3,) + lead + (X.shape[-2], self.hidden)
+        # one draw and one compare for the three masks; the chain axis, where
+        # there is one, follows the axis of the three
+        keep = streams.keep_mask(shape, 1.0 - self.p_drop, generator=generator,
+                                 device=X.device, chain_axis=1 if lead else None)
         return DropoutMasks(*keep.unbind(0))
 
     def logits(self, params: Params, X: torch.Tensor,

@@ -81,7 +81,8 @@ class Softmax(Model):
                 "bias": resid.sum(dim=0) - self.alpha * params["bias"]}
 
     def make_fused_value_and_grad(self, batch, fwd_full: bool = True,
-                                  include_prior: bool = True, x_split=None):
+                                  include_prior: bool = True, x_split=None,
+                                  use_kernel: bool = True):
         """Chain-batched log-posterior value+grad through the fused
         softmax-GLM op (the CUDA kernel for CUDA tensors).
 
@@ -90,17 +91,20 @@ class Softmax(Model):
         steps.  ``include_prior=False`` gives likelihood-only outputs.  The
         kernel's bf16 pieces of X (``ops.softmax_glm.split_bf16_input``) are
         cut here, once, for a CUDA X; pass the same ``x_split`` to several
-        makers to share one copy.  The CPU route does not use them."""
+        makers to share one copy.  The CPU route does not use them, and
+        neither does ``use_kernel=False``, which asks for the plain version by
+        name."""
         from ..ops.softmax_glm import softmax_value_and_grad, split_bf16_input
 
         X, y = batch
-        if x_split is None and X.is_cuda:
+        if x_split is None and X.is_cuda and use_kernel:
             x_split = split_bf16_input(X)
 
         def vag(params: Params):
             value, gw, gb = softmax_value_and_grad(
                 X, y, params["weights"], params["bias"], self.alpha,
-                fwd_full=fwd_full, include_prior=include_prior, x_split=x_split)
+                fwd_full=fwd_full, include_prior=include_prior, x_split=x_split,
+                use_kernel=use_kernel)
             grads = {"weights": gw, "bias": gb}
             return (value, grads) if fwd_full else grads
 

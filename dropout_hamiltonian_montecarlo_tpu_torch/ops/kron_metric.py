@@ -26,9 +26,18 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import streams
 from .metrics import Metric
 from .softmax_glm import split_bf16_input
 from .tree import Params, tree_add, tree_randn_like
+
+
+def gram_eigh(X: torch.Tensor):
+    """Eigendecomposition of the Gram matrix X^T X.  The GEMM runs on X's
+    device in f32; only the (D, D) result goes to the host.  Returns host
+    float64 (s_f (D,), U_f (D, D))."""
+    s_f, U_f = np.linalg.eigh((X.T @ X).double().cpu().numpy())
+    return np.maximum(s_f, 0.0), U_f
 
 
 def gram_eigh_augmented(X: torch.Tensor):
@@ -92,11 +101,9 @@ class KronMetric:
 
     def sample_momentum(self, position: Params, generator: torch.Generator) -> Params:
         """p ~ N(0, M), one draw per leading (chain) index of ``position``."""
-        if generator is None:
-            raise ValueError("a random draw needs an explicit torch.Generator")
-        shape = position["bias"].shape[:-1] + tuple(self.d_aug.shape)
-        eps = torch.randn(shape, generator=generator, dtype=torch.float32,
-                          device=self.d_aug.device)
+        lead = tuple(position["bias"].shape[:-1])
+        eps = streams.randn(lead + tuple(self.d_aug.shape), generator=generator,
+                            device=self.d_aug.device, chain_axis=0 if lead else None)
         return self.from_eigen(self.sqrt_d * eps)
 
     def kinetic_energy(self, momentum: Params) -> torch.Tensor:
@@ -129,6 +136,88 @@ class KronMetric:
         in parameter space to whitened space,
         g_e = unpack((U_g^T pack(g) U_a) / sqrt_d)."""
         return self.unpack(self.to_eigen(g) / self.sqrt_d)
+
+
+def softmax_gauss_newton_metric(X: torch.Tensor, n_classes: int, alpha: float,
+                                likelihood_scale: float = 1.0,
+                                probs: Optional[torch.Tensor] = None, gram=None,
+                                return_aux: bool = False, augmented: bool = False,
+                                fisher=None):
+    """Metric for params {'weights': (..., D, K), 'bias': (..., K)}; every map
+    accepts any leading (chain) axes and ``kinetic_energy`` sums over the last
+    two (one) axes only.
+
+    ``likelihood_scale`` rescales the data term (data_size / batch_size for a
+    scaled minibatch density).  ``probs``: (n, K) predicted class
+    probabilities, e.g. at the MAP: the class factor becomes the mean
+    empirical Fisher instead of the uniform categorical's.  ``gram``: a
+    precomputed ``gram_eigh(X)`` (``gram_eigh_augmented(X)`` with
+    ``augmented``), so a two-stage build pays for the eigendecomposition
+    once.  ``fisher``: a precomputed (s_a, U_a), which takes precedence over
+    ``probs``.  ``return_aux``: also return the spectral pieces {s_f, s_a,
+    d_w, d_b, alpha}, which ``make_whitened_gauge_gibbs`` reads.
+
+    ``augmented=False``: separate weight and bias blocks, M_W = (U_f (x) U_a)
+    diag(c s_f (x) s_a + alpha) (U_f (x) U_a)^T and M_b = U_a diag(c n s_a +
+    alpha) U_a^T.  ``sample_position(mean, eps)`` takes a standard-normal
+    dict ``eps`` shaped like ``mean``.  ``augmented=True``: the bias as the
+    weight of a constant feature, the exact Gauss-Newton-plus-prior metric: a
+    ``KronMetric`` (whose ``sample_position`` takes eps of shape (..., D+1, K))."""
+    k = n_classes
+    c = float(likelihood_scale)
+    s_a, U_a = fisher if fisher is not None else class_fisher_eigh(k, probs)
+    if augmented:
+        metric = KronMetric(gram if gram is not None else gram_eigh_augmented(X),
+                            (c * np.asarray(s_a), U_a), alpha, X.device)
+        aux = dict(metric.aux, s_a=np.asarray(s_a))
+        return (metric, aux) if return_aux else metric
+
+    n = X.shape[0]
+    s_f, U_f = gram if gram is not None else gram_eigh(X)
+    f32 = dict(dtype=torch.float32, device=X.device)
+    U_f = torch.as_tensor(np.asarray(U_f), **f32)
+    U_a = torch.as_tensor(np.asarray(U_a), **f32)
+    d_w = torch.as_tensor(c * np.outer(s_f, s_a) + alpha, **f32)      # (D, K)
+    d_b = torch.as_tensor(c * n * np.asarray(s_a) + alpha, **f32)     # (K,)
+    sqrt_w, sqrt_b = torch.sqrt(d_w), torch.sqrt(d_b)
+
+    def to_eigen(p: Params) -> Params:
+        return {"weights": U_f.T @ p["weights"] @ U_a, "bias": p["bias"] @ U_a}
+
+    def from_eigen(e: Params) -> Params:
+        return {"weights": U_f @ e["weights"] @ U_a.T, "bias": e["bias"] @ U_a.T}
+
+    def sample_momentum(position: Params, generator: torch.Generator) -> Params:
+        eps = tree_randn_like(position, generator)
+        return from_eigen({"weights": sqrt_w * eps["weights"], "bias": sqrt_b * eps["bias"]})
+
+    def kinetic_energy(momentum: Params) -> torch.Tensor:
+        e = to_eigen(momentum)
+        return 0.5 * ((e["weights"] ** 2 / d_w).sum(dim=(-2, -1))
+                      + (e["bias"] ** 2 / d_b).sum(dim=-1))
+
+    def kinetic_grad(momentum: Params) -> Params:
+        e = to_eigen(momentum)
+        return from_eigen({"weights": e["weights"] / d_w, "bias": e["bias"] / d_b})
+
+    def sample_position(mean: Params, eps: Params) -> Params:
+        return tree_add(mean, from_eigen({"weights": eps["weights"] / sqrt_w,
+                                          "bias": eps["bias"] / sqrt_b}))
+
+    def whiten(dq: Params) -> Params:
+        e = to_eigen(dq)
+        return {"weights": sqrt_w * e["weights"], "bias": sqrt_b * e["bias"]}
+
+    def unwhiten(e: Params) -> Params:
+        return from_eigen({"weights": e["weights"] / sqrt_w, "bias": e["bias"] / sqrt_b})
+
+    metric = Metric(sample_momentum, kinetic_energy, kinetic_grad, sample_position,
+                    whiten, unwhiten)
+    if return_aux:
+        return metric, {"s_f": np.asarray(s_f), "s_a": np.asarray(s_a),
+                        "d_w": d_w.cpu().numpy(), "d_b": d_b.cpu().numpy(),
+                        "alpha": float(alpha)}
+    return metric
 
 
 def natural_gradient_map(grad_fn, metric: KronMetric, init_params: Params,
@@ -297,10 +386,8 @@ def make_whitened_gauge_gibbs(metric: KronMetric, aux, qmap: Params):
         if eps_w is None or eps_b is None:
             if generator is None:
                 raise ValueError("pass eps_w=/eps_b= or an explicit generator=")
-            eps_w = torch.randn((c, m_w.shape[0]), generator=generator,
-                                dtype=torch.float32, device=device)
-            eps_b = torch.randn((c,), generator=generator, dtype=torch.float32,
-                                device=device)
+            eps_w = streams.randn((c, m_w.shape[0]), generator=generator, device=device)
+            eps_b = streams.randn((c,), generator=generator, device=device)
         old_w = e["weights"][:, :, j0]                            # (C, D)
         old_b = e["bias"][:, j0]                                  # (C,)
         zold_w = (old_w - m_w[None]) / sig_w[None]
@@ -326,18 +413,21 @@ def make_whitened_gauge_gibbs(metric: KronMetric, aux, qmap: Params):
     return gibbs
 
 
-def make_whitened_fused_vag(model, metric: KronMetric, qmap: Params, batch):
+def make_whitened_fused_vag(model, metric: KronMetric, qmap: Params, batch,
+                            use_kernel: bool = True):
     """Chain-batched value+grad of the whitened log posterior
     e -> logpost(qmap + unwhiten(e)), through the fused softmax-GLM op.
 
     Returns (batched_vag, batched_grad): ``batched_vag`` gives ((C,) values,
     whitened grads) with the accurate value; ``batched_grad`` is the
     grad-only variant for the inner leapfrog steps (no value).  Both share
-    one set of the kernel's bf16 pieces of X, cut here once (CUDA only)."""
+    one set of the kernel's bf16 pieces of X, cut here once (CUDA only).
+    ``use_kernel=False`` asks for the plain PyTorch version by name."""
     X = batch[0]
-    x_split = split_bf16_input(X) if X.is_cuda else None
-    fused_q = model.make_fused_value_and_grad(batch, x_split=x_split)
-    fused_g = model.make_fused_value_and_grad(batch, fwd_full=False, x_split=x_split)
+    x_split = split_bf16_input(X) if X.is_cuda and use_kernel else None
+    fused_q = model.make_fused_value_and_grad(batch, x_split=x_split, use_kernel=use_kernel)
+    fused_g = model.make_fused_value_and_grad(batch, fwd_full=False, x_split=x_split,
+                                              use_kernel=use_kernel)
 
     def to_params(E: Params) -> Params:
         dQ = metric.unwhiten(E)

@@ -12,6 +12,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from . import streams
 from .tree import (Params, tree_add, tree_batch_ravel, tree_batched_dot, tree_mul,
                    tree_ones_like, tree_randn_like)
 
@@ -83,10 +84,8 @@ def dense_metric_from_eigh(s: torch.Tensor, U: torch.Tensor,
         return tree_batch_ravel(tree)[0]                        # (C, D)
 
     def sample_momentum(position: Params, generator: torch.Generator) -> Params:
-        if generator is None:
-            raise ValueError("a random draw needs an explicit torch.Generator")
         z = flat(position)
-        eps = torch.randn(z.shape, generator=generator, dtype=z.dtype, device=z.device)
+        eps = streams.randn(z.shape, generator=generator, dtype=z.dtype, device=z.device)
         return unravel((sqrt_s * eps) @ U.T)
 
     def kinetic_energy(momentum: Params) -> torch.Tensor:

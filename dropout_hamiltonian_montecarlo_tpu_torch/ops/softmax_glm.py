@@ -310,7 +310,8 @@ def build_kernel() -> float:
 
 def softmax_value_and_grad(X, Y, W, b, alpha: float, *, fwd_full: bool = True,
                            include_prior: bool = True,
-                           x_split: Optional[Tuple[BF16Piece, Optional[BF16Piece]]] = None):
+                           x_split: Optional[Tuple[BF16Piece, Optional[BF16Piece]]] = None,
+                           use_kernel: bool = True):
     """Fused log-posterior value + gradient for all chains in one call.
 
     Returns (value (C,) or None, grad_W (C, D, K), grad_b (C, K)), float32.
@@ -320,9 +321,17 @@ def softmax_value_and_grad(X, Y, W, b, alpha: float, *, fwd_full: bool = True,
     sum the outputs of row shards, add the prior once).  ``x_split`` is
     ``split_bf16_input(X)``, cut once per run; on a CUDA tensor without it,
     every call cuts X anew.  The plain (CPU) version ignores it.
+
+    ``use_kernel=False`` asks for the plain version by name, on any device:
+    the A/B switch of the bench (``BENCH_KERNEL=0``).  Nothing selects it
+    silently: with the default, a CUDA tensor launches the kernel or raises.
     """
     _check_inputs(X, Y, W, b)
-    if X.device.type == "cuda":
+    if not use_kernel:
+        value, gw, gb = softmax_value_and_grad_plain(X, Y, W, b)
+        if not fwd_full:
+            value = None
+    elif X.device.type == "cuda":
         call = KernelCall(x_split if x_split is not None else split_bf16_input(X),
                           Y, W, b, with_value=fwd_full)
         value, gw, gb = call.run()

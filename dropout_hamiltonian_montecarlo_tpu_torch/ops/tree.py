@@ -11,6 +11,8 @@ from typing import Dict, Optional
 
 import torch
 
+from . import streams
+
 Params = Dict[str, torch.Tensor]
 
 
@@ -75,11 +77,10 @@ def tree_where(pred, a, b):
 
 
 def tree_randn_like(a: Params, generator: Optional[torch.Generator]) -> Params:
-    """Standard-normal dict with the shapes of ``a``, drawn from ``generator``."""
-    if generator is None:
-        raise ValueError("a random draw needs an explicit torch.Generator")
-    return {k: torch.randn(v.shape, generator=generator, dtype=v.dtype,
-                           device=v.device) for k, v in a.items()}
+    """Standard-normal dict with the shapes of a chain-batched ``a`` (leaves
+    (C, ...)), drawn from ``generator``, one draw per leaf."""
+    return {k: streams.randn(v.shape, generator=generator, dtype=v.dtype,
+                             device=v.device) for k, v in a.items()}
 
 
 def tree_batch_randn_like(a: Params, generator: Optional[torch.Generator]) -> Params:
@@ -87,13 +88,11 @@ def tree_batch_randn_like(a: Params, generator: Optional[torch.Generator]) -> Pa
     (C, ...)), from ONE (C, P) draw cut into views: one launch, not one per
     leaf.  Leaves are cut in sorted key order, as ``tree_batch_ravel`` lays
     them."""
-    if generator is None:
-        raise ValueError("a random draw needs an explicit torch.Generator")
     keys = sorted(a)
     leaf = a[keys[0]]
     sizes = [math.prod(a[k].shape[1:]) for k in keys]
-    z = torch.randn((leaf.shape[0], sum(sizes)), generator=generator, dtype=leaf.dtype,
-                    device=leaf.device)
+    z = streams.randn((leaf.shape[0], sum(sizes)), generator=generator, dtype=leaf.dtype,
+                      device=leaf.device)
     return {k: piece.reshape(a[k].shape) for k, piece in zip(keys, z.split(sizes, dim=1))}
 
 

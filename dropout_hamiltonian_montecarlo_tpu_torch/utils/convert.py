@@ -1,10 +1,13 @@
-"""Carry parameters, sampler states and metric setups from the JAX package
-to the port.
+"""Carry parameters, sampler states, metric setups and sample files between
+the JAX package and the port.
 
 Nothing here imports jax: a JAX array converts through ``np.asarray``, and a
 JAX NamedTuple is recognised by its type's name.  ``load_gn_setup(npz_path,
 alpha, device)`` reads a metric setup written by either package (see
-ops.kron_metric)."""
+ops.kron_metric).  A sample file (io.backend) has one layout in both
+packages, (draws, chains, ...) per dataset; ``draws_from_sample_file`` and
+``draws_to_numpy`` turn what ``HDF5Backend.read()`` gives into the (chains,
+draws, ...) form that either package's ``summarize`` takes."""
 
 from __future__ import annotations
 
@@ -74,3 +77,19 @@ def dense_metric_from_jax(s, U, position_like: Params) -> Metric:
     f32 = dict(dtype=torch.float32, device=leaf.device)
     return dense_metric_from_eigh(torch.as_tensor(np.array(s), **f32),
                                   torch.as_tensor(np.array(U), **f32), position_like)
+
+
+def draws_from_sample_file(stored: Mapping, device) -> Params:
+    """What ``HDF5Backend.read()`` of either package returns, numpy arrays
+    (draws, chains, ...) as a streaming run appends them, -> tensors on
+    ``device`` with (chains, draws, ...) leading axes, as the port's
+    ``summarize`` takes them."""
+    return {k: torch.as_tensor(np.asarray(v), device=device).transpose(0, 1)
+            for k, v in stored.items()}
+
+
+def draws_to_numpy(draws: Params):
+    """The port's (chains, draws, ...) tensors -> numpy arrays of the same
+    layout, which the JAX package's ``summarize`` takes (through
+    ``jnp.asarray``)."""
+    return {k: np.ascontiguousarray(v.detach().cpu().numpy()) for k, v in draws.items()}

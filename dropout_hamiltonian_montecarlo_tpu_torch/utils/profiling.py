@@ -1,12 +1,34 @@
-"""Throughput counters and a CUDA-event kernel timer."""
+"""A profiler span, throughput counters and a CUDA-event kernel timer."""
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
 import torch
+
+
+@contextlib.contextmanager
+def device_trace(logdir: str):
+    """A ``torch.profiler`` span over the ``with`` body: host and (on a CUDA
+    machine) device activity, written as a Chrome trace
+    ``<logdir>/trace.json`` (Perfetto and chrome://tracing read it).  Yields
+    the profiler, whose ``key_averages()`` holds the per-op times after the
+    body."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
 @dataclass

@@ -4,8 +4,9 @@ tests/test_nuts_batched.py::test_mnist_nuts_cli_digits_batched, configs 1 and
 2 and the per-chain ``mnist-nuts`` modes at small size, every JSON line's keys
 against the JAX CLI's line of the same subcommand (without ``compile_s``:
 the port compiles nothing), configs 4, 5 and 6 (``mnist-mlp-sgmcmc``,
-``plantvillage-smc``, ``mnist-vi``) at tiny sizes, and the options that are
-not ported yet.  Imports no jax."""
+``plantvillage-smc``, ``mnist-vi``) at tiny sizes, ``--data PATH`` on the four
+subcommands that take it, and the options that are not ported yet.  Imports
+no jax."""
 
 import contextlib
 import io
@@ -202,16 +203,15 @@ def test_plantvillage_smc_cli_on_cpu(one_thread, mutation, extra):
         assert agg["predictive_accuracy"] > 0.5
 
 
+PARALLEL = r"not ported yet \(ROADMAP queue 1, the parallel/ layer\)"
+
+
 @pytest.mark.parametrize("argv, what", [
     (["mnist-mlp-sgmcmc", "--data-shards", "2"], "--data-shards > 1"),
-    (["mnist-mlp-sgmcmc", "--data", "mnist.h5"], "--data PATH"),
-    (["mnist-vi", "--data", "mnist.h5"], "--data PATH"),
     (["plantvillage-smc", "--shard-particles"], "--shard-particles"),
-    (["plantvillage-smc", "--data", "features.h5"], "--data PATH"),
-], ids=["data-shards", "sgmcmc-data", "vi-data", "shard-particles", "smc-data"])
+], ids=["data-shards", "shard-particles"])
 def test_single_device_configs_refuse_unported_options(argv, what):
-    with pytest.raises(NotImplementedError,
-                       match=f"{what}.* not ported yet \\(ROADMAP slice 5\\)"):
+    with pytest.raises(NotImplementedError, match=f"{what}.* {PARALLEL}"):
         cli.main(argv + ["--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -220,24 +220,80 @@ def test_single_device_configs_refuse_unported_options(argv, what):
 
 @pytest.mark.parametrize("sub", ["mvn-hmc", "logistic-hmc"])
 def test_small_configs_refuse_unported_options(sub):
-    with pytest.raises(NotImplementedError, match=r"--save: .*not ported yet \(ROADMAP slice 5\)"):
-        cli.main([sub, "--device", "cpu", "--save", "draws.h5"])
+    """The file options run now; what is still refused is a checkpoint
+    without the sample file that a resumed run would go on from."""
+    with pytest.raises(SystemExit, match=r"--checkpoint/--resume require --save"):
+        cli.main([sub, "--device", "cpu", "--checkpoint", "ck.npz"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main([sub])
 
 
-@pytest.mark.parametrize("extra, item", [
-    (["--save", "draws.h5"], "slice 5"),
-    (["--stream-chunk", "10"], "slice 5"),
-    (["--checkpoint", "ck.npz"], "slice 5"),
-    (["--resume"], "slice 5"),
-    (["--chain-shards", "2"], "slice 5"),
-    (["--data", "mnist.h5"], "slice 5"),
-], ids=["save", "stream-chunk", "checkpoint", "resume", "chain-shards", "data"])
-def test_cli_unported_options_raise(extra, item):
-    with pytest.raises(NotImplementedError, match=f"not ported yet \\(ROADMAP {item}\\)"):
+@pytest.mark.parametrize("extra", [["--chain-shards", "2"]], ids=["chain-shards"])
+def test_cli_unported_options_raise(extra):
+    with pytest.raises(NotImplementedError, match=PARALLEL):
         cli.main(["mnist-nuts", "--device", "cpu"] + extra)
+
+
+def _write_h5(path, **arrays):
+    import h5py
+
+    with h5py.File(path, "w") as f:
+        for name, arr in arrays.items():
+            f[name] = arr
+
+
+def test_mnist_nuts_cli_reads_data_file(one_thread, tmp_path):
+    """--data PATH: real-pixel-like rows (0..255, one-hot labels) in the
+    reference's layout; the line names the file."""
+    pytest.importorskip("h5py")
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    yi = rng.randint(0, 10, 300)
+    centers = rng.randint(0, 200, (10, 20))
+    path = str(tmp_path / "mnist_train.h5")
+    _write_h5(path, X_train=np.clip(centers[yi] + 20 * rng.randn(300, 20), 0, 255)
+              .round().astype(np.float32), y_train=np.eye(10, dtype=np.float32)[yi])
+    agg = _run(["mnist-nuts", "--data", path, "--chains", "3", "--samples", "20", "--warmup",
+                "30", "--max-depth", "4", "--device", "cpu"])
+    assert agg["dataset"] == f"hdf5:{path}" and agg["train_accuracy"] > 0.9
+    # a path that is not there falls back to the synthetic set, and says so
+    from dropout_hamiltonian_montecarlo_tpu_torch.io import datasets
+    assert datasets.mnist_provenance(str(tmp_path / "missing.h5")) == "synthetic-mnist"
+
+
+@pytest.mark.parametrize("sub, extra", [
+    ("mnist-mlp-sgmcmc", ["--hidden", "8", "--batch-size", "64", "--num-steps", "50",
+                          "--burnin-steps", "10", "--collect-every", "10", "--sgd-init-steps",
+                          "200", "--sgd-step-size", "3e-5", "--chains", "2"]),
+    ("mnist-vi", ["--num-steps", "200", "--batch-size", "64"]),
+], ids=["sgmcmc-data", "vi-data"])
+def test_mnist_configs_read_data_file(one_thread, tmp_path, sub, extra):
+    pytest.importorskip("h5py")
+    import numpy as np
+
+    rng = np.random.RandomState(1)
+    yi = rng.randint(0, 10, 400)
+    centers = rng.randint(0, 200, (10, 12))
+    path = str(tmp_path / "mnist_train.h5")
+    _write_h5(path, X_train=np.clip(centers[yi] + 10 * rng.randn(400, 12), 0, 255)
+              .round().astype(np.float32), y_train=yi.astype(np.int64))
+    agg = _run([sub, "--data", path, "--device", "cpu"] + extra)
+    assert agg["dataset"] == f"hdf5:{path}" and math.isfinite(agg["predictive_nll"])
+    assert agg["train_accuracy"] > 0.5
+
+
+def test_plantvillage_smc_cli_reads_data_file(one_thread, tmp_path):
+    pytest.importorskip("h5py")
+    from dropout_hamiltonian_montecarlo_tpu_torch.io import datasets
+
+    X, y = datasets.plantvillage_features(n=300, dim=24, k=5)
+    path = str(tmp_path / "features.h5")
+    _write_h5(path, features=X, labels=y)
+    agg = _run(["plantvillage-smc", "--data", path, "--particles", "16", "--device", "cpu"])
+    assert agg["dataset"] == f"hdf5:{path}" and agg["num_stages"] >= 1
+    assert agg["predictive_accuracy"] > 0.8
 
 
 def test_cli_cuda_default_needs_a_card():

@@ -49,3 +49,18 @@ def test_ess_scalar_and_single_chain():
     ref = np.asarray(jax_ess(x[..., 0]))
     assert got.shape == ()
     np.testing.assert_allclose(got, ref, rtol=1e-4)
+
+
+def test_ess_pytree_matches_jax():
+    from dropout_hamiltonian_montecarlo_tpu.diagnostics.ess import ess_pytree as jax_ess_pytree
+    from dropout_hamiltonian_montecarlo_tpu_torch.diagnostics import ess_pytree
+
+    tree = {"weights": _ar1(3, 200, (2, 3), seed=2), "bias": _ar1(3, 200, (3,), seed=3)}
+    got = ess_pytree({k: torch.from_numpy(v) for k, v in tree.items()})
+    ref = jax_ess_pytree(tree)
+    assert set(got) == set(ref)
+    for k in tree:
+        assert got[k].shape == tree[k].shape[2:]
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]), rtol=1e-4)
+    one = ess_pytree(torch.from_numpy(tree["bias"]))
+    np.testing.assert_array_equal(one.numpy(), got["bias"].numpy())

@@ -204,3 +204,99 @@ def test_port_setup_loads_in_jax(setup, tmp_path):
     for k in ("weights", "bias"):
         r = np.asarray(setup["jqmap"][k])
         np.testing.assert_allclose(qmap[k].numpy(), r, atol=1e-3 * np.abs(r).max())
+
+
+# ---- the non-augmented metric and its builders --------------------------------
+
+def test_gram_eigh_matches_jax(setup):
+    X = setup["X"]
+    with jax.default_matmul_precision("highest"):
+        ref_s, ref_U = jkm.gram_eigh(jnp.asarray(X))
+    s, U = tkm.gram_eigh(torch.from_numpy(X))
+    assert s.dtype == np.float64 and U.shape == (setup["d"], setup["d"])
+    np.testing.assert_allclose(s, ref_s, rtol=1e-4, atol=1e-4 * ref_s.max())
+    # the reconstruction is what must agree: an eigenvector's sign is free
+    np.testing.assert_allclose((U * s) @ U.T, (ref_U * ref_s) @ ref_U.T,
+                               rtol=1e-4, atol=1e-4 * ref_s.max())
+    assert float(s.min()) >= 0.0
+
+
+@pytest.mark.parametrize("variant", ["uniform", "probs", "scaled"])
+def test_softmax_gauss_newton_metric_matches_jax(setup, variant):
+    """The separate weight / bias blocks, with the uniform class Fisher, the
+    empirical one from ``probs=``, and a ``likelihood_scale``; both packages
+    get one ``gram=`` (and, for the maps that depend on the eigenbasis, one
+    ``fisher=``).  rtol 1e-4, atol 1e-4 max|ref|."""
+    X, d = setup["X"], setup["d"]
+    rng = np.random.RandomState(8)
+    gram = tkm.gram_eigh(torch.from_numpy(X))
+    probs = None
+    if variant == "probs":
+        logits = rng.randn(X.shape[0], 10).astype(np.float32)
+        probs = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    scale = 2.5 if variant == "scaled" else 1.0
+    fisher = tkm.class_fisher_eigh(10, None if probs is None else torch.from_numpy(probs))
+    with jax.default_matmul_precision("highest"):
+        jm, jaux = jkm.softmax_gauss_newton_metric(
+            jnp.asarray(X), 10, ALPHA, likelihood_scale=scale, gram=gram,
+            probs=None if probs is None else jnp.asarray(probs), return_aux=True)
+        jm_shared = jkm.softmax_gauss_newton_metric(
+            jnp.asarray(X), 10, ALPHA, likelihood_scale=scale, gram=gram, fisher=fisher,
+            augmented=False)
+    tm, taux = tkm.softmax_gauss_newton_metric(
+        torch.from_numpy(X), 10, ALPHA, likelihood_scale=scale, gram=gram,
+        probs=None if probs is None else torch.from_numpy(probs), return_aux=True)
+    assert set(taux) == set(jaux)
+    for key in ("s_a", "d_w", "d_b"):
+        ref = np.asarray(jaux[key])
+        np.testing.assert_allclose(np.asarray(taux[key]), ref, rtol=1e-4,
+                                   atol=1e-5 * np.abs(ref).max())
+
+    p = _rand_tree(rng, d, scale=30.0)
+    tp = params_from_jax(p, "cpu")
+    with jax.default_matmul_precision("highest"):
+        ref_k = jax.vmap(jm.kinetic_energy)(p)
+        ref_g = jax.vmap(jm.kinetic_grad)(p)
+    np.testing.assert_allclose(tm.kinetic_energy(tp).numpy(), np.asarray(ref_k), rtol=1e-4)
+    _close_tree(tm.kinetic_grad(tp), ref_g)
+    # the JAX package ignores fisher= without augmented=True; hold the
+    # eigenbasis maps against each other only where both used the same basis
+    if variant != "probs":
+        dq = _rand_tree(rng, d, scale=0.01)
+        with jax.default_matmul_precision("highest"):
+            ref_w = jax.vmap(jm_shared.whiten)(dq)
+        got_w = tm.whiten(params_from_jax(dq, "cpu"))
+        back = tm.unwhiten(got_w)
+        _close_tree(back, dq)
+        np.testing.assert_allclose(
+            sum(float((v ** 2).sum()) for v in got_w.values()),
+            sum(float((np.asarray(v) ** 2).sum()) for v in ref_w.values()), rtol=1e-4)
+    # a momentum draw has covariance M: K(p) averages D K / 2 + K / 2 per chain
+    gen = torch.Generator().manual_seed(0)
+    like = {"weights": torch.zeros(200, d, 10), "bias": torch.zeros(200, 10)}
+    k_mean = float(tm.kinetic_energy(tm.sample_momentum(like, gen)).mean())
+    assert abs(k_mean / (0.5 * (d * 10 + 10)) - 1.0) < 0.05
+    # the Laplace draw: q = mean + M^-1/2 eps
+    eps = {k: torch.ones_like(v[:2]) for k, v in like.items()}
+    q = tm.sample_position({k: v[:2] for k, v in like.items()}, eps)
+    _close_tree(tm.whiten(q), {k: np.ones(v.shape, np.float32) for k, v in eps.items()})
+
+
+def test_softmax_gauss_newton_metric_augmented_is_the_kron_metric(setup):
+    X = torch.from_numpy(setup["X"])
+    gram = tkm.gram_eigh_augmented(X)
+    fisher = tkm.class_fisher_eigh(10)
+    metric, aux = tkm.softmax_gauss_newton_metric(X, 10, ALPHA, likelihood_scale=2.0,
+                                                  gram=gram, fisher=fisher, augmented=True,
+                                                  return_aux=True)
+    assert isinstance(metric, tkm.KronMetric) and aux["augmented"] is True
+    with jax.default_matmul_precision("highest"):
+        jm, jaux = jkm.softmax_gauss_newton_metric(
+            jnp.asarray(setup["X"]), 10, ALPHA, likelihood_scale=2.0, gram=gram,
+            fisher=fisher, augmented=True, return_aux=True)
+        rng = np.random.RandomState(3)
+        dq = _rand_tree(rng, setup["d"], scale=0.01)
+        ref = jax.vmap(jm.whiten)(dq)
+    _close_tree(metric.whiten(params_from_jax(dq, "cpu")), ref)
+    np.testing.assert_allclose(aux["s_a"], np.asarray(jaux["s_a"]), atol=1e-12)
+    np.testing.assert_allclose(aux["d_w"], np.asarray(jaux["d_w"]), rtol=1e-5)

@@ -169,23 +169,39 @@ def test_init_chain_positions_and_stack_chains():
 
 @pytest.mark.parametrize("sampler", ["hmc", "nuts"])
 def test_streaming_gives_the_draws_of_sample_posterior(sampler):
-    """The chunked form (draws kept block by block on the DeviceBackend)
-    consumes the generator as ``sample_posterior`` does: same draws."""
+    """The chunked form gives the draws of ``sample_posterior``'s own pieces
+    (``run_warmup``, then the kernel at the adapted step) run on the chunk
+    streams: warmup on the generator of (seed, warmup stream), chunk i on
+    that of (seed, sample stream, i).  The generator it is handed gives the
+    seed and is not drawn from."""
+    from dropout_hamiltonian_montecarlo_tpu_torch.inference.warmup import run_warmup
+    from dropout_hamiltonian_montecarlo_tpu_torch.ops import streams
+
     ld, pos, _ = _mvn_setup(3, 1)
     if sampler == "hmc":
         kernel, init_fn = hmc.build_kernel(ld, 5), lambda q: hmc.init(q, ld)
     else:
         kernel, init_fn = nuts.build_kernel(ld, max_tree_depth=4), lambda q: nuts.init(q, ld)
-    post = sampling.sample_posterior(init_fn, kernel, pos, num_samples=25, num_warmup=40,
-                                     num_chains=3, generator=torch.Generator().manual_seed(2))
-    backend = sampling.DeviceBackend()
+    gen = torch.Generator().manual_seed(2)
+    state_before = gen.get_state()
+    backend = sampling.DeviceBackend(num_draws=25)
     states, step, inv_mass, appended = sampling.sample_posterior_streaming(
         init_fn, kernel, pos, backend, num_samples=25, chunk_size=10, num_warmup=40,
-        num_chains=3, generator=torch.Generator().manual_seed(2))
-    assert appended == 25 and [b["x"].shape[0] for b in backend.device_blocks] == [10, 10, 5]
-    assert torch.equal(backend.draws()["x"], post.positions["x"])
-    assert torch.equal(step, post.step_size)
-    assert torch.equal(states.position["x"], post.final_state.position["x"])
+        num_chains=3, generator=gen)
+    assert appended == 25 and backend.num_draws() == 25
+    assert torch.equal(gen.get_state(), state_before)
+
+    warm = run_warmup(kernel, init_fn(pos), 40, initial_step_size=torch.full((3,), 0.1),
+                      generator=streams.chunk_generator(2, streams.STREAM_WARMUP, 0, "cpu"))
+    state, xs = warm.state, []
+    for i, take in enumerate([10, 10, 5]):
+        g = streams.chunk_generator(2, streams.STREAM_SAMPLE, i, "cpu")
+        for _ in range(take):
+            state, _ = kernel(state, warm.step_size, warm.inv_mass, generator=g)
+            xs.append(state.position["x"])
+    assert torch.equal(backend.draws()["x"], torch.stack(xs, dim=1))
+    assert torch.equal(step, warm.step_size)
+    assert torch.equal(states.position["x"], state.position["x"])
 
 
 def test_sampling_functions_check_their_arguments():
@@ -198,11 +214,16 @@ def test_sampling_functions_check_their_arguments():
     post = sampling.sample_posterior(init_fn, kernel, pos, num_samples=3, num_warmup=0,
                                      num_chains=3, initial_step_size=0.25, generator=gen)
     assert bool((post.step_size == 0.25).all()) and bool((post.inv_mass["x"] == 1).all())
-    for kwargs in ({"checkpoint_path": "ck.npz"}, {"resume": True}):
-        with pytest.raises(NotImplementedError, match=r"not ported yet \(ROADMAP slice 5\)"):
-            sampling.sample_posterior_streaming(init_fn, kernel, pos, sampling.DeviceBackend(),
-                                                num_samples=2, num_chains=3, generator=gen,
-                                                **kwargs)
-    with pytest.raises(NotImplementedError, match=r"not ported yet \(ROADMAP slice 5\)"):
-        sampling.sample_posterior_streaming(init_fn, kernel, pos, object(), num_samples=2,
-                                            num_chains=3, generator=gen)
+    with pytest.raises(ValueError, match="3 chains"):
+        sampling.sample_posterior_streaming(init_fn, kernel, pos, sampling.DeviceBackend(),
+                                            num_samples=2, num_chains=4, generator=gen)
+    # the one option of the streaming samplers that still waits: chain sharding
+    state = hmc.init(pos, ld)
+    with pytest.raises(NotImplementedError, match=r"not ported yet \(ROADMAP queue 1, .*parallel/"):
+        sampling.sample_batched_streaming(kernel, state, torch.full((3,), 0.25),
+                                          {"x": torch.ones(3, 2)}, sampling.DeviceBackend(),
+                                          num_samples=2, mesh=object(), generator=gen)
+    with pytest.raises(ValueError, match="explicit torch.Generator"):
+        sampling.sample_batched_streaming(kernel, state, torch.full((3,), 0.25),
+                                          {"x": torch.ones(3, 2)}, sampling.DeviceBackend(),
+                                          num_samples=2, generator=None)

@@ -219,3 +219,44 @@ def test_no_port_source_names_jax_in_an_import():
     for path in sources:
         with open(path) as f:
             assert not pattern.search(f.read()), path
+
+
+def test_bench_kernel_switch_and_trace_on_cpu(monkeypatch, capsys, tmp_path):
+    """BENCH_KERNEL=0 names the plain version in the line, and BENCH_TRACE
+    writes the sampling loop's profiler trace."""
+    for k, v in dict(BENCH_DATASET="digits", BENCH_CHAINS="3", BENCH_WARMUP="5",
+                     BENCH_DRAWS="8", BENCH_KERNEL="0",
+                     BENCH_TRACE=str(tmp_path / "trace")).items():
+        monkeypatch.setenv(k, v)
+    bench.main(["--device", "cpu"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["detail"]["kernel"] == "plain" and out["detail"]["path"] == "torch-plain"
+    assert out["detail"]["kernel_launches"] == {"value_and_grad": 0, "grad": 0}
+    with open(tmp_path / "trace" / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    assert any("aten::" in str(e.get("name", "")) for e in events)
+
+
+def test_use_kernel_false_is_the_plain_version():
+    from dropout_hamiltonian_montecarlo_tpu_torch.ops import softmax_glm as sg
+
+    rng = np.random.RandomState(0)
+    X = torch.from_numpy(rng.rand(50, 6).astype(np.float32))
+    Y = torch.from_numpy(np.eye(4, dtype=np.float32)[rng.randint(0, 4, 50)])
+    W = torch.from_numpy(rng.randn(3, 6, 4).astype(np.float32))
+    b = torch.from_numpy(rng.randn(3, 4).astype(np.float32))
+    sg.reset_launch_counts()
+    ref = sg.softmax_value_and_grad(X, Y, W, b, 1.0)
+    got = sg.softmax_value_and_grad(X, Y, W, b, 1.0, use_kernel=False)
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    assert sg.softmax_value_and_grad(X, Y, W, b, 1.0, fwd_full=False, use_kernel=False)[0] is None
+    assert sg.launch_counts == {"value_and_grad": 0, "grad": 0}
+
+
+def test_device_trace_span(tmp_path):
+    from dropout_hamiltonian_montecarlo_tpu_torch.utils.profiling import device_trace
+
+    with device_trace(str(tmp_path / "t")) as prof:
+        torch.ones(8, 8) @ torch.ones(8, 8)
+    assert any(e.key == "aten::matmul" or e.key == "aten::mm" for e in prof.key_averages())
+    assert (tmp_path / "t" / "trace.json").stat().st_size > 0
