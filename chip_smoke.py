@@ -11,8 +11,9 @@ Phases, one line each (any failure exits non-zero):
      against the plain PyTorch version on the same inputs (f32, and float64
      for the value), and two calls against each other (bit-identical), at
      small ragged shapes (X on the 8-bit grid; X off it, which runs the X_lo
-     passes; K = 7) and at the bench shape (N=60000, D=784, K=10, C=128, X
-     on the 8-bit grid); per-call and per-stage times from CUDA events;
+     passes; K = 7), at the bench shape (N=60000, D=784, K=10, C=128, X on
+     the 8-bit grid) and at the sharded phases' shapes (C=64; N=30000 with
+     include_prior=False); per-call and per-stage times from CUDA events;
   4. main path: the port bench (synthetic MNIST 60000 x 784, full metric
      setup, 128 chains, L=10, target 0.5) cut to 50 warmup steps and 100
      draws; its JSON line, checks on its outputs, and the kernel launch
@@ -25,12 +26,11 @@ Phases, one line each (any failure exits non-zero):
      predictive accuracy above 0.85);
   7. ChEES: the HMC bench with ChEES warmup, 50 warmup steps and 50 draws;
      checks (finite step, 1 <= L <= 64, finite ESS) and exact launch counts;
-  8. configs 1-2 through the CLI: ``mvn-hmc`` (HMC, 4 chains x 1000 draws:
-     mean within 0.1 and covariance within 0.15 of the target, min ESS >
-     2000, max R-hat < 1.01, acceptance in (0.6, 0.99), zero divergences),
-     and, cut to 300 draws with the bounds scaled to the draw count,
-     ``mvn-hmc --nuts`` (4 x 300: min ESS >= half the draws, max R-hat <
-     1.02, the moment bounds widened by sqrt(1000 / 300)) and
+  8. configs 1-2 through the CLI, cut to 300 draws with the bounds scaled
+     to the draw count: ``mvn-hmc`` and ``mvn-hmc --nuts`` (4 chains x 300
+     draws: mean within 0.1 and covariance within 0.15 of the target, both
+     widened by sqrt(1000 / 300), min ESS >= half the draws, max R-hat <
+     1.02, acceptance in (0.6, 0.99), zero divergences) and
      ``logistic-hmc`` (32 x 300: test accuracy >= 0.98, max R-hat < 1.02,
      min ESS >= half the draws), and random-walk Metropolis on the same 2-D
      MVN through ``run_warmup_scale`` (moments within 0.15); draws/s and the
@@ -81,12 +81,47 @@ Phases, one line each (any failure exits non-zero):
      an uninterrupted run's (equal bit for bit); and ``--data PATH`` on a
      small file of off-grid pixels (k/255) that the script writes from a
      seed, whose launches must take the kernel's X_lo passes.
+ 16-18 run their ranks as processes, started by torchrun in two launches
+     (``chip_smoke.py --rank-worker STEPS.json``), each running its steps in
+     one process group: 2 ranks under gloo (NCCL takes one card a rank, and
+     the two ranks share the one card), then 1 rank under NCCL; each step
+     counts the kernel's launches from zero, and a failed or timed-out rank
+     fails the run with the ranks' log.  Then each phase checks its steps:
+ 16. chain shards: the HMC headline of phase 4 through ``BENCH_CHAIN_SHARDS=2``
+     (2 ranks x 64 chains, 50 warmup + 100 draws, rank 0's sampling loop
+     under the profiler for its busy share) must equal the same two blocks
+     run in this process through the sharded code BIT FOR BIT (a sha256 a
+     chain), with 9 grad-only + 1 value+grad launches a draw on each rank;
+     against phase 4's unblocked draws (the kernel's backward slices depend
+     on C K, so 64-chain blocks round otherwise; phase 3 holds both shapes
+     against plain) the acceptance within 0.05, the accept decisions that
+     differ at most 2 p (1 - p) + 0.05, the largest draw difference within
+     10 coordinate sd and every coordinate's mean within 6 sqrt(2 / min ESS)
+     sd; the same run at world size 1 under NCCL must equal phase 4 bit for
+     bit; and ``mnist-nuts --chain-shards 2`` (128 chains, cap 4, 50 + 50)
+     must give every chain the tree sizes of the blockwise one-process run,
+     exactly;
+ 17. data parallelism: the full-batch softmax value+grad at the bench shape
+     over 2 ranks of 30,000 rows (the kernel with include_prior=False, one
+     all-reduce, the prior once) within phase 3's tolerances of the
+     one-process kernel call; ``mnist-mlp-sgmcmc --data-shards 2`` at full
+     width (16 chains, global batch 1024, 1000 SGD steps, 300 steps): finite
+     outputs, dropout in the potential, the seconds of gloo's all-reduce per
+     step; and one data shard through ``run_sgmcmc_data_parallel`` equal to
+     ``run_sgmcmc_chains`` bit for bit at full width;
+ 18. particle sharding: ``plantvillage-smc --particles 256 --n-data 5000
+     --shard-particles`` against phase 12's run of the same seed: on one rank
+     under NCCL the same line, bit for bit (stages, log evidence, accuracy);
+     on 2 ranks (gloo; 128-particle blocks round their GEMMs otherwise) the
+     same stage count, the log evidence within 0.1%, accuracy >= 0.99.
 Phases 10-12 print seconds, steps/s and the device's busy share, and run no
 fused kernel (the JAX package computes these paths outside any Pallas
-kernel).  Every phase prints its seconds.
-Phases 4-15 each count the kernel's launches from zero just before the run
-and read them just after.  Then one JSON line describing each kernel (its
-launches summed over phases 4-15, its bound from the bytes and operations of
+kernel).  Every phase prints its seconds; phases 16-18 also the launch
+counts of every rank and the card's name and power limit.
+Phases 4-18 each count the kernel's launches from zero just before the run
+and read them just after (a rank counts its own).  Then one JSON line
+describing each kernel (its launches summed over phases 4-18 and all ranks,
+its bound from the bytes and operations of
 the bench-shape call; ``library_ms`` is null because no single PyTorch call
 computes the function: the plain version is two matmuls and a log_softmax),
 and last:
@@ -106,12 +141,15 @@ import time
 from pathlib import Path
 
 WARMUP, DRAWS, CHAINS, L = 50, 100, 128, 10
-SMALL_DRAWS = 300        # mvn-hmc --nuts and logistic-hmc, cut from 1000 draws
+SMALL_DRAWS = 300        # mvn-hmc, mvn-hmc --nuts and logistic-hmc, cut from 1000 draws
 SGMCMC_CHAINS, SMC_PARTICLES = 16, 256
 SMC_LOG_EVIDENCE = -738.2   # the JAX package's recorded config-5 run (RESULTS.md)
 NUTS_WARMUP, NUTS_DRAWS, NUTS_DEPTH = 50, 50, 4
 RESUME_WARMUP, RESUME_CHUNK, RESUME_CHUNKS = 20, 25, 4
 PER_CHAIN_WARMUP, PER_CHAIN_DRAWS = 30, 30
+# phase 17's config 4 on 2 data shards: SGD warm start, then steps (a third
+# of them burn-in), cut from 3000 + 3000
+DP_SGD_STEPS, DP_STEPS = 1000, 300
 # NVIDIA's data sheet for the H100 SXM: dense bf16 tensor-core rate (the
 # kernel's products are bf16 pieces), and the HBM3 rate
 PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
@@ -146,19 +184,22 @@ def make_inputs(torch, n, d, k, c, seed, w_scale, grid=True):
     return X, Y, W, b
 
 
-def compare(torch, sg, X, Y, W, b, alpha, x_split):
+def compare(torch, sg, X, Y, W, b, alpha, x_split, include_prior=True):
     """Kernel (both variants) against plain; returns the max abs errors and,
-    for the gradients, the max abs errors over max|g|."""
+    for the gradients, the max abs errors over max|g|.  ``include_prior=False``:
+    the likelihood-only variant a data shard runs, against plain without the
+    prior."""
     ref_v, ref_gw, ref_gb = sg.softmax_value_and_grad_plain(X, Y, W, b)
-    ref_v = ref_v + sg.log_prior_batched(W, b, alpha)
-    ref_gw, ref_gb = ref_gw - alpha * W, ref_gb - alpha * b
+    if include_prior:
+        ref_v = ref_v + sg.log_prior_batched(W, b, alpha)
+        ref_gw, ref_gb = ref_gw - alpha * W, ref_gb - alpha * b
     ll64, _, _ = sg.softmax_value_and_grad_plain(X.double(), Y.double(), W.double(),
                                                  b.double())
-    v, gw, gb = sg.softmax_value_and_grad(X, Y, W, b, alpha, fwd_full=True, x_split=x_split)
-    v2, gw2, gb2 = sg.softmax_value_and_grad(X, Y, W, b, alpha, fwd_full=False,
-                                             x_split=x_split)
-    again = (sg.softmax_value_and_grad(X, Y, W, b, alpha, fwd_full=True, x_split=x_split)
-             + sg.softmax_value_and_grad(X, Y, W, b, alpha, fwd_full=False, x_split=x_split))
+    kw = dict(x_split=x_split, include_prior=include_prior)
+    v, gw, gb = sg.softmax_value_and_grad(X, Y, W, b, alpha, fwd_full=True, **kw)
+    v2, gw2, gb2 = sg.softmax_value_and_grad(X, Y, W, b, alpha, fwd_full=False, **kw)
+    again = (sg.softmax_value_and_grad(X, Y, W, b, alpha, fwd_full=True, **kw)
+             + sg.softmax_value_and_grad(X, Y, W, b, alpha, fwd_full=False, **kw))
     torch.cuda.synchronize()
     if v2 is not None:
         fail("grad-only variant returned a value")
@@ -166,7 +207,7 @@ def compare(torch, sg, X, Y, W, b, alpha, x_split):
                                    (v, gw, gb, v2, gw2, gb2), again):
         if first is not None and not torch.equal(first, second):
             fail(f"{name}: two calls on the same inputs differ")
-    v64 = v.double() - sg.log_prior_batched(W, b, alpha).double()
+    v64 = v.double() - (sg.log_prior_batched(W, b, alpha).double() if include_prior else 0.0)
     errs = {"value": float((v - ref_v).abs().max()),
             "value_vs_f64": float((v64 - ll64).abs().max())}
     for name, got, ref in (("gw", gw, ref_gw), ("gb", gb, ref_gb),
@@ -269,8 +310,9 @@ def busy_share(torch, step, n):
     """(ms per call of ``step``, device-busy share): the kernel time that
     torch.profiler sums over ``n`` calls, over the wall time of ``n``
     unprofiled calls.  The share is None if the profiler saw no device time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from dropout_hamiltonian_montecarlo_tpu_torch.utils.profiling import device_seconds
 
     step()
     torch.cuda.synchronize()
@@ -283,10 +325,8 @@ def busy_share(torch, step, n):
         for _ in range(n):
             step()
         torch.cuda.synchronize()
-    # kernels and copies only: an operator's row repeats its kernels' time
-    device_us = sum(e.self_device_time_total for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA)
-    return wall / n * 1e3, (device_us / 1e6 / wall if device_us else None)
+    busy = device_seconds(prof)
+    return wall / n * 1e3, (busy / wall if busy else None)
 
 
 def draw_rate(torch, seen, steps, n=10):
@@ -624,14 +664,562 @@ def phase_files(torch, cli, kron_metric, backend_mod, workdir, chains, depth, ch
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 16-18: ranks started as subprocesses by torchrun
+# ---------------------------------------------------------------------------
+
+
+class RecordLeaves:
+    """Patches ``nuts_batched.build_batched_kernel`` so that every kernel it
+    builds keeps each call's per-chain tree sizes (on the device, read at the
+    end): ``leaves()`` is (calls, chains)."""
+
+    def __init__(self, torch, nuts_batched):
+        self.torch, self.nb, self.calls = torch, nuts_batched, []
+
+    def __enter__(self):
+        inner, calls = self.nb.build_batched_kernel, self.calls
+        self._inner = inner
+
+        class Recorded:
+            def __init__(self, kernel):
+                self._kernel = kernel
+
+            def __call__(self, *a, **kw):
+                state, info = self._kernel(*a, **kw)
+                calls.append(info.num_integration_steps.clone())
+                return state, info
+
+            def __getattr__(self, name):
+                return getattr(self._kernel, name)
+
+        self.nb.build_batched_kernel = lambda *a, **kw: Recorded(inner(*a, **kw))
+        return self
+
+    def __exit__(self, *exc):
+        self.nb.build_batched_kernel = self._inner
+
+    def leaves(self):
+        return self.torch.stack(self.calls).cpu()
+
+
+def chain_digests(torch, draws) -> list:
+    """One sha256 a chain over the bytes of its draws (every leaf of
+    ``draws``, chains leading): equal digests are equal draws, bit for bit."""
+    import hashlib
+
+    chains = next(iter(draws.values())).shape[0]
+    out = []
+    for c in range(chains):
+        h = hashlib.sha256()
+        for k in sorted(draws):
+            h.update(draws[k][c].contiguous().cpu().numpy().tobytes())
+        out.append(h.hexdigest())
+    return out
+
+
+def run_ranks(nproc: int, steps: list, workdir: str, timeout: float):
+    """One torchrun launch of ``nproc`` ranks of this script's worker, in a
+    process group of their own (killed on a timeout), running ``steps`` in
+    turn; returns ({step name: each rank's JSON report}, the launch's
+    seconds).  A failed rank fails the phase with the ranks' log."""
+    import signal
+
+    tag = f"ranks{nproc}"
+    spec = os.path.join(workdir, f"{tag}.json")
+    with open(spec, "w") as f:
+        json.dump(steps, f)
+    log = os.path.join(workdir, f"{tag}.log")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           str(nproc), os.path.abspath(__file__), "--rank-worker", spec, "--out", workdir]
+    # the ranks' BLAS threads as this process's (torchrun would give each rank
+    # one): the host eigh of the metric set-up rounds by its thread count, and
+    # the ranks are held bit for bit against runs made in this process
+    threads = {} if "OMP_NUM_THREADS" in os.environ else {
+        "OMP_NUM_THREADS": str(len(os.sched_getaffinity(0)))}
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT, stdin=subprocess.DEVNULL,
+                                env=dict(os.environ, **threads), start_new_session=True)
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            rc = "timeout"
+    seconds = time.perf_counter() - t0
+    if rc != 0:
+        with open(log) as f:
+            tail = f.read().splitlines()[-60:]
+        print("\n".join(tail), flush=True)
+        fail(f"the {nproc}-rank launch of {[s['name'] for s in steps]} exited {rc} (log above)")
+    reports = {}
+    for step in steps:
+        reports[step["name"]] = []
+        for r in range(nproc):
+            with open(os.path.join(workdir, f"{step['name']}_rank{r}.json")) as f:
+                reports[step["name"]].append(json.load(f))
+    return reports, seconds
+
+
+def worker(spec: str, out: str) -> None:
+    """One rank of phases 16-18 (started by ``run_ranks``): runs each step of
+    the JSON list in ``spec`` in turn, in one process group, with the
+    kernel's launch counts set to 0 just before the step and read just
+    after, and writes ``<out>/<name>_rank<r>.json`` with them, the step's
+    seconds, its seconds in the all-reduce and what its mode reports.  A
+    step is {"name", "mode", "argv", "env", "profile"}; the modes: "bench"
+    (``bench.main``; "profile" traces rank 0's sampling loop), "cli"
+    (``cli.main``, with the lockstep tree sizes) and "dpvag" (phase 17's
+    value+grad)."""
+    import torch
+
+    from dropout_hamiltonian_montecarlo_tpu_torch import bench, cli, full_f32_precision
+    from dropout_hamiltonian_montecarlo_tpu_torch.inference import nuts_batched
+    from dropout_hamiltonian_montecarlo_tpu_torch.ops import softmax_glm as sg
+    from dropout_hamiltonian_montecarlo_tpu_torch.parallel import mesh
+
+    full_f32_precision()
+    rank = int(os.environ["RANK"])
+    cuda = torch.cuda.is_available()
+    with open(spec) as f:
+        steps = json.load(f)
+    reduce_s = {"s": 0.0, "n": 0}
+    inner_reduce = mesh.all_reduce_sum
+
+    def timed_reduce(tensors, group):
+        # the collective's seconds, the device work before it excluded
+        tensors = list(tensors)
+        if tensors and tensors[0].is_cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = inner_reduce(tensors, group)
+        if got and got[0].is_cuda:
+            torch.cuda.synchronize()
+        reduce_s["s"] += time.perf_counter() - t0
+        reduce_s["n"] += 1
+        return got
+
+    mesh.all_reduce_sum = timed_reduce
+    for step in steps:
+        mode, argv, env = step["mode"], step["argv"], dict(step.get("env", {}))
+        if step.get("profile") and rank == 0:
+            env["BENCH_TRACE"] = os.path.join(out, f"trace_{step['name']}")
+        before = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        report, record = {}, None
+        reduce_s.update(s=0.0, n=0)
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sg.reset_launch_counts()
+        stdout = io.StringIO()
+        if mode == "bench":
+            with contextlib.redirect_stdout(stdout):
+                record = bench.main(argv, keep_draws=True)
+        elif mode == "cli":
+            with RecordLeaves(torch, nuts_batched) as rec, contextlib.redirect_stdout(stdout):
+                cli.main(argv)
+            lines = stdout.getvalue().strip().splitlines()
+            report["line"] = json.loads(lines[-1]) if lines else None
+            if rec.calls:
+                report["leaves"] = rec.leaves().tolist()
+        elif mode == "dpvag":
+            report.update(dp_value_and_grad_rank(torch, sg, argv, out))
+        else:
+            raise SystemExit(f"unknown worker mode {mode}")
+        if cuda:
+            torch.cuda.synchronize()
+        report.update(rank=rank, seconds=time.perf_counter() - t0,
+                      launches=dict(sg.launch_counts), reduce_s=reduce_s["s"],
+                      reduces=reduce_s["n"], backend=torch.distributed.get_backend())
+        if record is not None:
+            draws = record.pop("draws")
+            report.update(record=record, digests=chain_digests(torch, draws))
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        with open(os.path.join(out, f"{step['name']}_rank{rank}.json"), "w") as f:
+            json.dump(report, f)
+    mesh.all_reduce_sum = inner_reduce
+    torch.distributed.destroy_process_group()
+
+
+def dp_inputs(torch, device, n, d, k, c):
+    """Phase 3's bench-shape inputs (seed 1) on ``device``."""
+    if device == "cuda":
+        return make_inputs(torch, n, d, k, c, 1, 0.05)
+    g = torch.Generator().manual_seed(1)
+    X = torch.randint(0, 256, (n, d), generator=g).float() / 256.0
+    Y = torch.nn.functional.one_hot(torch.randint(0, k, (n,), generator=g), k).float()
+    return X, Y, 0.05 * torch.randn((c, d, k), generator=g), 0.1 * torch.randn((c, k),
+                                                                                 generator=g)
+
+
+def dp_value_and_grad_rank(torch, sg, argv, out_dir):
+    """Phase 17's value+grad on this rank's rows (argv: device backend n d k
+    c): the fused kernel with include_prior=False, the all-reduce, the prior
+    once.  Rank 0 saves the result beside its report."""
+    from dropout_hamiltonian_montecarlo_tpu_torch.models import Softmax
+    from dropout_hamiltonian_montecarlo_tpu_torch.parallel import (
+        init_distributed, local_device, make_layout, make_sharded_value_and_grad, shard_data)
+
+    device, backend, (n, d, k, c) = argv[0], argv[1], map(int, argv[2:6])
+    dev = local_device(device)
+    init_distributed(backend=backend, device=dev)
+    layout = make_layout(1, int(os.environ["WORLD_SIZE"]))
+    X, Y, W, b = dp_inputs(torch, dev.type, n, d, k, c)
+    vag = make_sharded_value_and_grad(Softmax(dim=d, n_classes=k, alpha=1.0), n, layout)
+    local = shard_data((X, Y), layout)
+    value, grads = vag({"weights": W, "bias": b}, local)
+    out = {"local_rows": int(local[0].shape[0])}
+    if dev.type == "cuda":
+        from dropout_hamiltonian_montecarlo_tpu_torch.utils.profiling import cuda_time_ms
+
+        out["ms_per_call_with_all_reduce"] = cuda_time_ms(
+            lambda: vag({"weights": W, "bias": b}, local), 5, 1)
+    if layout.rank == 0:
+        torch.save({"value": value.cpu(), "weights": grads["weights"].cpu(),
+                    "bias": grads["bias"].cpu()}, os.path.join(out_dir, "dpvag.pt"))
+    return out
+
+
+def launches_of(reports) -> dict:
+    """The kernel launches of every rank of a run, summed."""
+    return {k: sum(r["launches"][k] for r in reports) for k in ("value_and_grad", "grad")}
+
+
+def add_launches(total: dict, counts: dict) -> None:
+    for key in total:
+        total[key] += counts[key]
+
+
+def bench_env(chains, warmup, draws, dataset, shards) -> dict:
+    return {"BENCH_CHAINS": str(chains), "BENCH_WARMUP": str(warmup),
+            "BENCH_DRAWS": str(draws), "BENCH_L": str(L), "BENCH_TARGET_ACCEPT": "0.5",
+            "BENCH_DATASET": dataset, "BENCH_CHAIN_SHARDS": str(shards)}
+
+
+def nuts_argv(device, dataset, chains, nuts) -> list:
+    """Phase 16's ``mnist-nuts --chain-shards 2``."""
+    nw, nd, depth = nuts
+    argv = ["mnist-nuts", "--chains", str(chains), "--samples", str(nd), "--warmup", str(nw),
+            "--max-depth", str(depth), "--chain-shards", "2", "--device", device]
+    return argv + (["--dataset", "digits"] if dataset == "digits" else [])
+
+
+def rank_launches(workdir, smc_argv, device="cuda", dataset="mnist", chains=CHAINS,
+                  warmup=WARMUP, draws=DRAWS, nuts=(NUTS_WARMUP, NUTS_DRAWS, NUTS_DEPTH),
+                  dp_shape=(60000, 784, 10, CHAINS), sgmcmc_argv=None, nccl="nccl"):
+    """The ranks of phases 16-18 in two torchrun launches, each running its
+    steps in one process group: 2 ranks under gloo (NCCL takes one card a
+    rank, and the two share the one card), then 1 rank under NCCL.  Returns
+    ({step name: each rank's report}, {ranks: the launch's seconds})."""
+    gloo = ["--dist-backend", "gloo"]
+    smc_argv = list(smc_argv) + ["--shard-particles"]
+    two = [{"name": "bench2", "mode": "bench", "argv": ["--device", device] + gloo,
+            "env": bench_env(chains, warmup, draws, dataset, 2), "profile": True},
+           {"name": "nuts2", "mode": "cli",
+            "argv": nuts_argv(device, dataset, chains, nuts) + gloo},
+           {"name": "dpvag2", "mode": "dpvag", "argv": [device, "gloo", *map(str, dp_shape)]}]
+    if sgmcmc_argv is not None:
+        two.append({"name": "sgmcmc2", "mode": "cli",
+                    "argv": list(sgmcmc_argv) + ["--data-shards", "2"] + gloo})
+    two.append({"name": "smc2", "mode": "cli", "argv": smc_argv + gloo})
+    one = [{"name": "bench1", "mode": "bench",
+            "argv": ["--device", device, "--dist-backend", nccl],
+            "env": bench_env(chains, warmup, draws, dataset, 1)},
+           {"name": "smc1", "mode": "cli", "argv": smc_argv + ["--dist-backend", nccl]}]
+    reports, seconds = {}, {}
+    for n, steps, timeout in ((2, two, 600), (1, one, 300)):
+        got, seconds[n] = run_ranks(n, steps, workdir, timeout)
+        reports.update(got)
+    return reports, seconds
+
+
+def phase_chain_shards(torch, bench, cli, nuts_batched, sg, ranks, unblocked, leaves6,
+                       device="cuda", dataset="mnist", chains=CHAINS, warmup=WARMUP,
+                       draws=DRAWS, nuts=(NUTS_WARMUP, NUTS_DRAWS, NUTS_DEPTH)):
+    """Phase 16 on the ranks' reports (``rank_launches``).  ``unblocked``:
+    phase 4's record with its draws (the same seed and settings, one
+    process, all chains); ``leaves6``: phase 6's tree sizes.  Returns (what
+    was measured, the launches of everything it ran)."""
+    from dropout_hamiltonian_montecarlo_tpu_torch.parallel import RankLayout
+
+    cuda = device == "cuda"
+    out, total = {}, {"value_and_grad": 0, "grad": 0}
+
+    def add(counts):
+        add_launches(total, counts)
+
+    want = {"grad": (warmup + draws) * (L - 1), "value_and_grad": warmup + draws + 2}
+
+    # (a) the HMC headline on 2 ranks x chains / 2 (gloo: one card); rank 0's
+    # sampling loop ran under the profiler, rank 1's did not
+    two = ranks["bench2"]
+    add(launches_of(two))
+    rec = two[0]["record"]
+    det = rec["detail"]
+    out["two_ranks"] = {key: det[key] for key in (
+        "chain_shards", "acceptance", "ess_median", "ess_min", "sample_seconds",
+        "sample_seconds_per_rank", "sampling_busy_share", "kernel_launches_per_rank",
+        "step_size_median")}
+    out["two_ranks"].update(median_ess_per_sec=rec["value"], backend=two[0]["backend"],
+                            seconds_per_rank=[round(r["seconds"], 2) for r in two])
+    if det["chain_shards"] != 2 or not math.isfinite(rec["value"]):
+        fail(f"phase 16: the 2-rank bench line: {json.dumps(det)}")
+    if cuda and any(r["launches"] != want for r in two):
+        fail(f"phase 16: launches per rank {[r['launches'] for r in two]} != {want}")
+
+    # (b) the same seed in one process, block by block, through the sharded code
+    blocks = []
+    for r in range(2):
+        sg.reset_launch_counts()
+        record = bench.run(device=device, chains=chains, warmup=warmup, draws=draws,
+                           num_integration_steps=L, target_accept=0.5, dataset=dataset,
+                           layout=RankLayout(2, 1, r), keep_draws=True)
+        if cuda and dict(sg.launch_counts) != want:
+            fail(f"phase 16: block {r} launched {dict(sg.launch_counts)} != {want}")
+        add(dict(sg.launch_counts))
+        blocks.append(record)
+    joined = {k: torch.cat([b["draws"][k] for b in blocks]) for k in blocks[0]["draws"]}
+    same = [a == b for a, b in zip(chain_digests(torch, joined), two[0]["digests"])]
+    out["two_ranks_equal_blockwise_chains"] = sum(same)
+    if not all(same):
+        fail(f"phase 16: the 2-rank draws differ from the blockwise one-process run's in "
+             f"chains {[i for i, s in enumerate(same) if not s]}")
+
+    # (c) against the unblocked one-process run (phase 4).  The kernel's
+    # backward slices depend on C K, so 64-chain blocks round otherwise than
+    # 128 and the trajectories part (phase 3 holds both shapes against plain).
+    # Bounds that two runs of this posterior meet: acceptance within 0.05;
+    # accept decisions differing at most as two independent samplers' would,
+    # 2 p (1 - p), plus 0.05; the largest draw difference within 10 times
+    # the largest coordinate sd; every coordinate's mean within 6 standard
+    # errors of a difference of two independent means, sd sqrt(2 / min ESS)
+    ref = unblocked["draws"]
+    p = unblocked["detail"]["acceptance"]
+    acc_blocks = 0.5 * sum(b["detail"]["acceptance"] for b in blocks)
+    flips = joined["accepted"] != ref["accepted"]
+    first = flips.any(dim=0).nonzero().flatten().tolist()
+    diff, sd_max, mean_z = 0.0, 0.0, 0.0
+    for k in ("weights", "bias"):
+        a, u = joined[k].flatten(0, 1), ref[k].flatten(0, 1)
+        sd = u.std(0)
+        diff = max(diff, float((joined[k] - ref[k]).abs().max()))
+        sd_max = max(sd_max, float(sd.max()))
+        mean_z = max(mean_z, float(((a.mean(0) - u.mean(0)).abs() / sd).max()))
+    ess = min(unblocked["detail"]["ess_min"], det["ess_min"])
+    limits = {"acceptance_gap": 0.05, "accept_flip_frac": 2 * p * (1 - p) + 0.05,
+              "max_abs_draw_diff": 10 * sd_max,
+              "max_mean_diff_over_sd": 6 * math.sqrt(2 / ess)}
+    got = {"acceptance_gap": abs(acc_blocks - p),
+           "accept_flip_frac": float(flips.float().mean()),
+           "max_abs_draw_diff": diff, "max_mean_diff_over_sd": mean_z}
+    out["vs_unblocked"] = {
+        "measured": got, "limits": limits, "accept_decisions_differing": int(flips.sum()),
+        "of": int(flips.numel()), "first_draw_differing": first[0] if first else None,
+        "acceptance_blockwise": acc_blocks, "acceptance_unblocked": p}
+    if not all(math.isfinite(got[key]) and got[key] <= limits[key] for key in limits):
+        fail(f"phase 16: blockwise against unblocked: {json.dumps(out['vs_unblocked'])}")
+    del joined, blocks
+
+    # (d) world size 1 under NCCL: all chains in one rank = phase 4, bit for bit
+    one = ranks["bench1"]
+    add(launches_of(one))
+    out["world_1"] = {"backend": one[0]["backend"], "seconds": round(one[0]["seconds"], 2)}
+    ref_digests = chain_digests(torch, ref)
+    out["world_1"]["equal_unblocked_chains"] = sum(
+        a == b for a, b in zip(one[0]["digests"], ref_digests))
+    if one[0]["digests"] != ref_digests or (cuda and one[0]["launches"] != want):
+        fail(f"phase 16: world size 1 under {one[0]['backend']} differs from phase 4 "
+             f"({out['world_1']['equal_unblocked_chains']} of {chains} chains equal, "
+             f"launches {one[0]['launches']})")
+
+    # (e) mnist-nuts --chain-shards 2 against the blockwise one-process run
+    cranks = ranks["nuts2"]
+    add(launches_of(cranks))
+    line = cranks[0]["line"]
+    two_leaves = torch.cat([torch.tensor(r["leaves"]) for r in cranks], dim=1)
+    argv = nuts_argv(device, dataset, chains, nuts)
+    inner_join = cli._join
+    parts = []
+    try:
+        for r in range(2):
+            cli._join = lambda args, *a, r=r, **kw: (torch.device(device), RankLayout(2, 1, r))
+            sg.reset_launch_counts()
+            with RecordLeaves(torch, nuts_batched) as rec, contextlib.redirect_stdout(
+                    io.StringIO()):
+                cli.main(argv)
+            add(dict(sg.launch_counts))
+            parts.append(rec.leaves())
+    finally:
+        cli._join = inner_join
+    blockwise = torch.cat(parts, dim=1)
+    out["cli"] = {key: line[key] for key in ("chain_shards", "min_ess", "median_ess",
+                                             "max_rhat", "train_accuracy",
+                                             "predictive_accuracy", "mean_leaves_per_draw",
+                                             "run_s", "warmup_s")}
+    out["cli"]["seconds_per_rank"] = [round(r["seconds"], 2) for r in cranks]
+    out["cli"]["launches_per_rank"] = [r["launches"] for r in cranks]
+    out["cli"]["tree_sizes_equal_blockwise"] = bool(torch.equal(two_leaves, blockwise))
+    if leaves6 is not None and leaves6.shape == two_leaves.shape:
+        out["cli"]["tree_sizes_equal_unblocked_frac"] = float(
+            (two_leaves == leaves6).float().mean())
+    if not torch.equal(two_leaves, blockwise):
+        fail(f"phase 16: --chain-shards 2 tree sizes differ from the blockwise one-process "
+             f"run's at {int((two_leaves != blockwise).sum())} of {two_leaves.numel()} "
+             f"(chain, step)")
+    if line["chain_shards"] != 2 or not math.isfinite(line["max_rhat"]) or not min(
+            line["train_accuracy"], line["predictive_accuracy"]) > 0.85:
+        fail(f"phase 16: the --chain-shards 2 line: {json.dumps(line)}")
+    return out, total
+
+
+def phase_data_parallel(torch, sg, ranks, workdir, mnist, device="cuda",
+                        shape=(60000, 784, 10, CHAINS), width=(784, 256, 10), steps=20,
+                        sgmcmc_steps=DP_STEPS):
+    """Phase 17 on the ranks' reports (``rank_launches``).  Returns (what was
+    measured, the launches of everything it ran)."""
+    from dropout_hamiltonian_montecarlo_tpu_torch.inference import sgmcmc
+    from dropout_hamiltonian_montecarlo_tpu_torch.models import DropoutMLP
+    from dropout_hamiltonian_montecarlo_tpu_torch.ops import streams
+    from dropout_hamiltonian_montecarlo_tpu_torch.parallel import (
+        RankLayout, make_sharded_value_and_grad, run_sgmcmc_data_parallel)
+
+    cuda = device == "cuda"
+    out, total = {}, {"value_and_grad": 0, "grad": 0}
+
+    def add(counts):
+        add_launches(total, counts)
+
+    # (a) the full-batch value+grad over 2 ranks of n / 2 rows
+    n, d, k, c = shape
+    dp = ranks["dpvag2"]
+    add(launches_of(dp))
+    got = torch.load(os.path.join(workdir, "dpvag.pt"))
+    X, Y, W, b = dp_inputs(torch, device, n, d, k, c)
+    sg.reset_launch_counts()
+    v, gw, gb = sg.softmax_value_and_grad(X, Y, W, b, 1.0)
+    add(dict(sg.launch_counts))
+    errs = {"value": float((got["value"] - v.cpu()).abs().max())}
+    for name, mine, ref in (("weights", got["weights"], gw.cpu()),
+                            ("bias", got["bias"], gb.cpu())):
+        gmax = float(ref.abs().max())
+        errs[name] = float((mine - ref).abs().max())
+        bad = (mine - ref).abs() > GRAD_ATOL_FRAC * gmax + GRAD_RTOL * ref.abs()
+        if bool(bad.any()):
+            fail(f"phase 17: the 2-rank gradient {name} differs in {int(bad.sum())} elements "
+                 f"(max {errs[name]:.3g}, max|g| {gmax:.4g})")
+    if errs["value"] > VALUE_ATOL:
+        fail(f"phase 17: the 2-rank value is {errs['value']:.4g} nat off")
+    out["value_and_grad"] = {"errors": errs, "local_rows": [r["local_rows"] for r in dp],
+                             "launches_per_rank": [r["launches"] for r in dp],
+                             "seconds_per_rank": [round(r["seconds"], 2) for r in dp],
+                             "ms_per_call_with_all_reduce": [
+                                 r.get("ms_per_call_with_all_reduce") for r in dp]}
+    if cuda and any(r["launches"]["value_and_grad"] < 1 for r in dp):
+        fail(f"phase 17: a rank did not launch the kernel: {[r['launches'] for r in dp]}")
+    del X, Y, W, b, got
+
+    # (b) mnist-mlp-sgmcmc --data-shards 2
+    if "sgmcmc2" in ranks:
+        sranks = ranks["sgmcmc2"]
+        add(launches_of(sranks))
+        line = sranks[0]["line"]
+        out["sgmcmc"] = {key: line[key] for key in (
+            "data_shards", "dropout", "train_accuracy", "predictive_accuracy",
+            "predictive_nll", "logdensity_rhat", "elapsed_s", "steps_per_sec", "sgd_init_s")}
+        steps_run = sgmcmc_steps
+        out["sgmcmc"]["seconds_per_rank"] = [round(r["seconds"], 2) for r in sranks]
+        out["sgmcmc"]["all_reduce_s_per_step"] = [round(r["reduce_s"] / steps_run, 6)
+                                                  for r in sranks]
+        out["sgmcmc"]["all_reduces_per_step"] = [r["reduces"] / steps_run for r in sranks]
+        check_finite(line, ("train_accuracy", "predictive_accuracy", "predictive_nll",
+                            "min_ess", "logdensity_ess", "elapsed_s"))
+        if line["data_shards"] != 2 or line["dropout"] is not True:
+            fail(f"phase 17: the --data-shards 2 line: {json.dumps(line)}")
+        if any(r["launches"] != {"value_and_grad": 0, "grad": 0} for r in sranks):
+            fail(f"phase 17: config 4 launched the fused kernel: "
+                 f"{[r['launches'] for r in sranks]}")
+
+    # (c) one data shard through the data-parallel driver = run_sgmcmc_chains
+    Xn, yn = mnist
+    dim, hidden, classes = width
+    Xd = torch.from_numpy(Xn).to(device)
+    Yd = torch.nn.functional.one_hot(torch.from_numpy(yn.astype("int64")).to(device),
+                                     classes).float()
+    model = DropoutMLP(dim=dim, hidden=hidden, n_classes=classes, alpha=1.0, p_drop=0.1)
+    gen = torch.Generator(device=device).manual_seed(0)
+    one = [model.init_params(gen, device) for _ in range(SGMCMC_CHAINS)]
+    pos = {kk: torch.stack([p[kk] for p in one]) for kk in one[0]}
+    n_rows = Xd.shape[0]
+    run = dict(batch_size=1024, num_steps=steps,
+               step_size_schedule=sgmcmc.constant_schedule(1e-5), collect_every=5)
+    ref = sgmcmc.run_sgmcmc_chains(
+        sgmcmc.build_sghmc_kernel(model.make_batched_logdensity(data_size=n_rows, dropout=True),
+                                  keyed=True),
+        sgmcmc.sghmc_init(pos), SGMCMC_CHAINS, (Xd, Yd),
+        generator=streams.block_generator(5, device), **run)
+    lay = RankLayout(1, 1, 0)
+    dp = run_sgmcmc_data_parallel(
+        sgmcmc.build_sghmc_kernel(keyed=True, value_and_grad_fn=make_sharded_value_and_grad(
+            model, n_rows, lay, keyed=True)),
+        sgmcmc.sghmc_init(pos), SGMCMC_CHAINS, (Xd, Yd), lay,
+        generator=streams.block_generator(5, device), **run)
+    equal = all(torch.equal(dp[1][kk], ref[1][kk]) for kk in ref[1])
+    out["one_data_shard_equals_run_sgmcmc_chains"] = equal
+    if not equal:
+        fail("phase 17: one data shard differs from run_sgmcmc_chains")
+    return out, total
+
+
+def phase_particles(ranks, reference):
+    """Phase 18 on the ranks' reports (``rank_launches``): ``plantvillage-smc
+    --shard-particles`` against ``reference``, the one-process line of the
+    same seed: at world size 1 (NCCL on the card) it must be that line, bit
+    for bit; on 2 ranks (gloo), the same ladder length and evidence.  Returns
+    (what was measured, the launches of both runs)."""
+    keys = ("num_stages", "log_evidence", "predictive_accuracy", "elapsed_s")
+    out = {"one_process": {key: reference[key] for key in keys}}
+    total = {"value_and_grad": 0, "grad": 0}
+    for n in (1, 2):
+        reports = ranks[f"smc{n}"]
+        line = reports[0]["line"]
+        got = {key: line[key] for key in keys}
+        got.update(seconds_per_rank=[round(r["seconds"], 2) for r in reports],
+                   backend=reports[0]["backend"],
+                   launches_per_rank=[r["launches"] for r in reports])
+        out[f"{n}_ranks"] = got
+        add_launches(total, launches_of(reports))
+        if line["shard_particles"] is not True or not line["predictive_accuracy"] >= 0.99:
+            fail(f"phase 18: {json.dumps(out)}")
+    # one rank: the gathers copy, the ladder is the one-process code
+    if any(out["1_ranks"][key] != reference[key] for key in keys[:3]):
+        fail(f"phase 18: one rank is not the one-process run: {json.dumps(out)}")
+    # two ranks: 128-particle blocks round their GEMMs otherwise than 256
+    # (cuBLAS picks its kernels by shape), so the evidence moves in its last
+    # digits; on the card this seed kept its 38 stages with the evidence 0.18
+    # nat (0.024%) off in every whole run.  Asked: the same stage count, the
+    # evidence within 0.1%
+    two = out["2_ranks"]
+    out["log_evidence_gap"] = abs(two["log_evidence"] - reference["log_evidence"])
+    if (two["num_stages"] != reference["num_stages"]
+            or out["log_evidence_gap"] > 1e-3 * abs(reference["log_evidence"])):
+        fail(f"phase 18: two ranks against the one-process run: {json.dumps(out)}")
+    return out, total
+
+
 def main() -> None:
     import torch
 
     if not torch.cuda.is_available():
         fail("no CUDA device")
     from dropout_hamiltonian_montecarlo_tpu_torch import bench, cli, full_f32_precision
-    from dropout_hamiltonian_montecarlo_tpu_torch.inference import (metropolis, sampling, sgmcmc,
-                                                                    smc, vi)
+    from dropout_hamiltonian_montecarlo_tpu_torch.inference import (metropolis, nuts_batched,
+                                                                    sampling, sgmcmc, smc, vi)
     from dropout_hamiltonian_montecarlo_tpu_torch.io import datasets
     from dropout_hamiltonian_montecarlo_tpu_torch.models import MVNGaussian
     from dropout_hamiltonian_montecarlo_tpu_torch.ops import softmax_glm as sg
@@ -693,6 +1281,20 @@ def main() -> None:
     big = compare(torch, sg, Xb, Yb, Wb, bb, alpha, split)
     print("phase 3 kernel vs plain, errors: small " + json.dumps(small)
           + "; bench(N=60000,D=784,K=10,C=128) " + json.dumps(big), flush=True)
+    # the shapes of the sharded phases: a 64-chain block of phase 16 (C K =
+    # 640 sets the backward's slices otherwise than 1280) and phase 17's
+    # 30,000-row data shard, whose call leaves the prior out.  Launches made
+    # here to compare are not the path's: phase 4 counts from zero
+    sharded = {}
+    for label, shape, prior in (("N=60000,D=784,K=10,C=64", (60000, 784, 10, 64), True),
+                                ("N=30000,D=784,K=10,C=128,include_prior=False",
+                                 (30000, 784, 10, 128), False)):
+        X, Y, W, b = make_inputs(torch, *shape, 1, 0.05)
+        sharded[label] = compare(torch, sg, X, Y, W, b, alpha, sg.split_bf16_input(X),
+                                 include_prior=prior)
+    del X, Y, W, b
+    print("phase 3 kernel vs plain at the sharded phases' shapes, errors: "
+          + json.dumps(sharded), flush=True)
     stages = {}
     for name, full in (("value+grad", True), ("grad-only", False)):
         call = sg.KernelCall(split, Yb, Wb, bb, with_value=full)
@@ -728,9 +1330,12 @@ def main() -> None:
     # ---- 4. main path ---------------------------------------------------
     sg.reset_launch_counts()
     result = bench.run(device="cuda", chains=CHAINS, warmup=WARMUP, draws=DRAWS,
-                       num_integration_steps=L, target_accept=0.5, dataset="mnist")
+                       num_integration_steps=L, target_accept=0.5, dataset="mnist",
+                       keep_draws=True)
     torch.cuda.synchronize()
     counts = dict(sg.launch_counts)
+    # the draws stay for phase 16, which holds the sharded runs against them
+    unblocked = {"draws": result.pop("draws"), "detail": result["detail"]}
     print("phase 4 main path: " + json.dumps(result), flush=True)
     det = result["detail"]
     check_finite(det, ("ess_median", "ess_min", "acceptance", "sample_seconds"))
@@ -783,9 +1388,10 @@ def main() -> None:
     # ---- 6. CLI -------------------------------------------------------------
     sg.reset_launch_counts()
     out = io.StringIO()
-    with contextlib.redirect_stdout(out):
+    with RecordLeaves(torch, nuts_batched) as leaves6, contextlib.redirect_stdout(out):
         cli.main(["mnist-nuts", "--chains", str(CHAINS), "--samples", str(NUTS_DRAWS),
                   "--warmup", str(NUTS_WARMUP), "--max-depth", str(NUTS_DEPTH)])
+    leaves6 = leaves6.leaves()
     torch.cuda.synchronize()
     counts = dict(sg.launch_counts)
     add(counts)
@@ -825,13 +1431,13 @@ def main() -> None:
     sg.reset_launch_counts()
     target_cov = torch.tensor([[1.5, 0.5], [0.5, 1.5]])
     widen = math.sqrt(1000 / SMALL_DRAWS)     # a moment's error goes as 1/sqrt(draws)
-    for extra, draws, ess_floor, rhat_cap, mean_atol, cov_atol in (
-            ([], 1000, 2000, 1.01, 0.1, 0.15),
-            (["--nuts"], SMALL_DRAWS, 0.5 * 4 * SMALL_DRAWS, 1.02, 0.1 * widen, 0.15 * widen)):
-        line, agg, seen = run_cli(torch, cli, sampling,
-                                  ["mvn-hmc", "--chains", "4", "--samples", str(draws)] + extra)
+    mean_atol, cov_atol = 0.1 * widen, 0.15 * widen
+    ess_floor, rhat_cap = 0.5 * 4 * SMALL_DRAWS, 1.02
+    for extra in ([], ["--nuts"]):
+        line, agg, seen = run_cli(torch, cli, sampling, ["mvn-hmc", "--chains", "4",
+                                                         "--samples", str(SMALL_DRAWS)] + extra)
         post = seen["post"]
-        rate = draw_rate(torch, seen, 300 + draws)
+        rate = draw_rate(torch, seen, 300 + SMALL_DRAWS)
         acc = float(post.infos.acceptance_prob.mean())
         label = "mvn-hmc " + " ".join(extra)
         print(f"phase 8 {label}: {line}; acceptance {acc:.4f}, leapfrog steps per draw "
@@ -1023,6 +1629,8 @@ def main() -> None:
                             ("sghmc", ["--mutation", "sghmc", "--batch-size", "1024",
                                        "--step-size", "1e-3", "--mcmc-steps", "40"])):
         line, agg, seen = run_cli(torch, cli, smc, smc_common + extra, name="run_tempered_smc")
+        if mutation == "hmc":
+            smc_reference = agg         # phase 18 shards the same run
         state, info = seen["result"]
         _, log_prior, log_lik = seen["args"]
         kw = seen["kwargs"]
@@ -1120,6 +1728,42 @@ def main() -> None:
             print("phase 15 was not run: it needs h5py (phases 13-14 hold the resume and "
                   "the draw buffer without a file)", flush=True)
 
+    # ---- 16-18. ranks as processes under torchrun -----------------------------
+    with tempfile.TemporaryDirectory() as workdir:
+        ranks, launch_s = rank_launches(
+            workdir, smc_common, sgmcmc_argv=[
+                "mnist-mlp-sgmcmc", "--chains", str(SGMCMC_CHAINS), "--num-steps",
+                str(DP_STEPS), "--burnin-steps", str(DP_STEPS // 3), "--collect-every", "10",
+                "--sgd-init-steps", str(DP_SGD_STEPS)])
+        print("phases 16-18 ranks: seconds a launch " + json.dumps(launch_s)
+              + ", seconds a step and rank " + json.dumps(
+                  {name: [round(r["seconds"], 2) for r in reports]
+                   for name, reports in ranks.items()}), flush=True)
+        phase_seconds("phases 16-18 rank launches")
+
+        sg.reset_launch_counts()
+        measured, counts = phase_chain_shards(torch, bench, cli, nuts_batched, sg, ranks,
+                                              unblocked, leaves6)
+        add(counts)
+        del unblocked
+        torch.cuda.empty_cache()
+        print(f"phase 16 chain shards: {json.dumps(measured)}; launch counts {counts}; "
+              f"{smi.splitlines()[0]}", flush=True)
+        phase_seconds("phase 16")
+
+        measured, counts = phase_data_parallel(torch, sg, ranks, workdir, mnist_arrays)
+        add(counts)
+        torch.cuda.empty_cache()
+        print(f"phase 17 data parallel: {json.dumps(measured)}; launch counts {counts}; "
+              f"{smi.splitlines()[0]}", flush=True)
+        phase_seconds("phase 17")
+
+        measured, counts = phase_particles(ranks, smc_reference)
+        add(counts)
+        print(f"phase 18 particle shards: {json.dumps(measured)}; launch counts {counts}; "
+              f"{smi.splitlines()[0]}", flush=True)
+        phase_seconds("phase 18")
+
     kernels = [
         {"name": "softmax_glm_value_and_grad", "route": "cuda", "source": SOURCE,
          "replaces": REPLACES, "launches": total["value_and_grad"],
@@ -1139,5 +1783,9 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) > 1 and sys.argv[1] == "--rank-worker":
+        # the ranks of phases 16-18: chip_smoke.py --rank-worker STEPS.json --out DIR
+        worker(sys.argv[2], sys.argv[4])
+    else:
+        main()
     sys.exit(0)

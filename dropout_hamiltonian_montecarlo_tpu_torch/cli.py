@@ -25,9 +25,17 @@ with ``--stream-chunk N`` they are spooled in chunks of N while sampling, and
 ``--checkpoint FILE`` then writes a resumable checkpoint after every chunk:
 ``--resume`` skips warmup and goes on where the checkpoint stopped, and the
 file ends up holding exactly the draws of an uninterrupted run.  ``--data
-PATH`` reads the data from an HDF5 file.  The multi-device options
-(``--chain-shards``, ``--data-shards``, ``--shard-particles``) raise
-``NotImplementedError``: they wait for the parallel layer.
+PATH`` reads the data from an HDF5 file.
+
+The options that lay a run over ranks (``mnist-nuts --chain-shards N``,
+``mnist-mlp-sgmcmc --data-shards N``, ``plantvillage-smc --shard-particles``)
+run one process per rank, started by torchrun:
+
+    torchrun --standalone --nproc-per-node 2 \
+        -m dropout_hamiltonian_montecarlo_tpu_torch.cli mnist-nuts --chain-shards 2
+
+Rank 0 prints the line.  ``--dist-backend`` names the collectives' backend
+(default nccl on cuda, gloo on the CPU; two ranks on one card need gloo).
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ import numpy as np
 import torch
 
 from .ops import streams
+from .parallel.mesh import RankLayout, chain_block, gather
 
 NUM_CLASSES = 10
 
@@ -66,23 +75,30 @@ def _common(p: argparse.ArgumentParser) -> None:
                    help="torch device (default cuda; cpu only when named)")
 
 
-WAITS_FOR_PARALLEL = "not ported yet (ROADMAP queue 1, the parallel/ layer)"
+def _dist_backend(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
+                   help="under torchrun: the collectives' backend (default nccl on cuda, "
+                        "gloo on the CPU; two ranks on one card need gloo)")
 
 
-def _refuse_unported(args) -> None:
-    """Options of the JAX CLI that the port does not run yet: the ones that
-    lay a run over several devices."""
-    unported = [
-        (getattr(args, "chain_shards", 1) > 1,
-         f"--chain-shards > 1: chain sharding is {WAITS_FOR_PARALLEL}"),
-        (getattr(args, "data_shards", 1) > 1,
-         f"--data-shards > 1: data-parallel SG-MCMC is {WAITS_FOR_PARALLEL}"),
-        (getattr(args, "shard_particles", False),
-         f"--shard-particles: particle sharding is {WAITS_FOR_PARALLEL}"),
-    ]
-    for refused, msg in unported:
-        if refused:
-            raise NotImplementedError(msg)
+def _join(args, option: str, num_chain_shards=None, num_data_shards: int = 1):
+    """(device, layout) of a run laid over ranks by ``option``.  Under
+    torchrun it joins the group (``parallel.init_distributed``) and lays the
+    ranks out; outside it only a layout of one process runs, and asking for
+    more raises with the command to use: nothing falls back to one process."""
+    from .parallel import init_distributed, local_device, make_layout
+
+    if "WORLD_SIZE" not in os.environ:
+        if (num_chain_shards or 1) * num_data_shards > 1:
+            n = (num_chain_shards or 1) * num_data_shards
+            raise SystemExit(
+                f"{option} runs one process per rank, started by torchrun: torchrun "
+                f"--standalone --nproc-per-node {n} -m dropout_hamiltonian_montecarlo_tpu_torch"
+                f".cli {args.cmd} {option} ...")
+        return _device(args), RankLayout(1, 1, 0)
+    dev = local_device(_device(args))
+    init_distributed(backend=args.dist_backend, device=dev)
+    return dev, make_layout(num_chain_shards, num_data_shards)
 
 
 def _resuming(args) -> bool:
@@ -180,7 +196,6 @@ def cmd_mvn_hmc(args) -> dict:
     from .inference.sampling import init_chain_positions
     from .models import MVNGaussian
 
-    _refuse_unported(args)
     dev = _device(args)
     a = 0.5 * torch.ones((args.dim, args.dim), device=dev)
     model = MVNGaussian(torch.zeros(args.dim, device=dev), a @ a.T + torch.eye(args.dim,
@@ -210,7 +225,6 @@ def cmd_logistic_hmc(args) -> dict:
     from .io import datasets
     from .models import Logistic
 
-    _refuse_unported(args)
     dev = _device(args)
     (Xtr, ytr), (Xte, yte) = [tuple(torch.from_numpy(a).to(dev) for a in part)
                               for part in datasets.blobs(n=args.n_data)]
@@ -232,7 +246,8 @@ def cmd_logistic_hmc(args) -> dict:
     return agg
 
 
-def _run_mnist_nuts_batched(args, model, metric, qmap, X, y, gen, draw_buffer_threshold=None):
+def _run_mnist_nuts_batched(args, model, metric, qmap, X, y, gen, layout,
+                            draw_buffer_threshold=None):
     """Config 3's execution path: lockstep chain-batched NUTS in whitened
     coordinates, every leaf of every chain's tree through ONE fused
     value+grad call, warmup by per-chain dual averaging on the same kernel,
@@ -246,6 +261,14 @@ def _run_mnist_nuts_batched(args, model, metric, qmap, X, y, gen, draw_buffer_th
     the diagnostics take it in blocks.  ``--save`` spools every chunk to the
     file as well; a RESUMED run's earlier draws exist only in the file, so it
     reads the file back (blockwise, through host memory).
+
+    ``layout`` with process groups (``--chain-shards``): this rank runs its
+    chain block from warmup on, on ``gen``, which carries the block, so the
+    adapted step sizes and the draws do not depend on the shard count; the
+    chunk summaries are means over all chains; with ``--save`` each rank
+    writes its shard file (``ShardedHDF5Backend``) and the checkpoint is
+    global.  Rank 0 gathers the draws for the diagnostics; the other ranks
+    return None.
 
     Returns (run_s, extra, results): the results hold the aggregate line,
     the posterior mean and the predictive probabilities."""
@@ -262,6 +285,9 @@ def _run_mnist_nuts_batched(args, model, metric, qmap, X, y, gen, draw_buffer_th
 
     dev = X.device
     d, k, chains = X.shape[1], NUM_CLASSES, args.chains
+    block = chain_block(layout, chains)
+    sharded = layout.distributed
+    c = block.size                       # this rank's chains
     batched_vag, _ = make_whitened_fused_vag(model, metric, qmap, (X, y))
     kernel = nuts_batched.build_batched_kernel(batched_vag, max_tree_depth=args.max_depth)
     resuming = _resuming(args)
@@ -272,17 +298,17 @@ def _run_mnist_nuts_batched(args, model, metric, qmap, X, y, gen, draw_buffer_th
 
     t0 = time.perf_counter()
     # Laplace init is exactly e ~ N(0, I) in whitened coordinates
-    e0 = {"weights": streams.randn((chains, d, k), generator=gen, device=dev),
-          "bias": streams.randn((chains, k), generator=gen, device=dev)}
+    e0 = {"weights": streams.randn((c, d, k), generator=gen, device=dev),
+          "bias": streams.randn((c, k), generator=gen, device=dev)}
     state0 = nuts_batched.batched_init(e0, batched_vag)
     if resuming:
         # warmup is skipped: the checkpoint carries the chain states and the
         # adapted step sizes, which replace these placeholders of the right shapes
-        warm_state, warm_step = state0, torch.full((chains,), args.step_size, device=dev)
+        warm_state, warm_step = state0, torch.full((c,), args.step_size, device=dev)
         warm_s = 0.0
     else:
         warm = run_warmup(kernel, state0, args.warmup,
-                          initial_step_size=torch.full((chains,), args.step_size, device=dev),
+                          initial_step_size=torch.full((c,), args.step_size, device=dev),
                           target_acceptance=args.target_accept, adapt_mass=False,
                           generator=gen)
         warm_state, warm_step = warm.state, warm.step_size
@@ -293,21 +319,24 @@ def _run_mnist_nuts_batched(args, model, metric, qmap, X, y, gen, draw_buffer_th
     def to_param(pos_e):
         # whitened (C, T, ...) draws -> parameter space, one chain at a time
         out = {kk: torch.empty_like(v) for kk, v in pos_e.items()}
-        for c in range(chains):
-            dq = metric.unwhiten({kk: v[c] for kk, v in pos_e.items()})
+        for i in range(c):
+            dq = metric.unwhiten({kk: v[i] for kk, v in pos_e.items()})
             for kk in out:
-                out[kk][c] = qmap[kk] + dq[kk]
+                out[kk][i] = qmap[kk] + dq[kk]
         return out
 
     chunk = args.stream_chunk if args.stream_chunk > 0 else min(max(args.samples, 1), 50)
     file_b = None
     if args.save:
-        from .io import HDF5Backend
+        from .io import HDF5Backend, ShardedHDF5Backend
 
-        file_b = HDF5Backend(args.save, mode="a" if resuming else "w")
+        mode = "a" if resuming else "w"
+        file_b = (ShardedHDF5Backend(args.save, mode, process_index=layout.rank,
+                                     chain_indices=range(block.start, block.stop))
+                  if sharded else HDF5Backend(args.save, mode=mode))
     # a fresh run diagnoses the draws where the buffer holds them
     buffered = not resuming
-    storage = choose_draw_storage(draw_bytes(chains, args.samples, e0), dev,
+    storage = choose_draw_storage(draw_bytes(c, args.samples, e0), dev,
                                   draw_buffer_threshold)
     t0 = time.perf_counter()
     with (TeeDeviceBackend(file_b, num_draws=args.samples, storage=storage)
@@ -315,14 +344,25 @@ def _run_mnist_nuts_batched(args, model, metric, qmap, X, y, gen, draw_buffer_th
         _, _, infos = sample_batched_streaming(
             kernel, warm_state, warm_step, inv_mass, b, num_samples=args.samples,
             chunk_size=chunk, transform=to_param, checkpoint_path=args.checkpoint,
-            resume=args.resume, generator=gen)
+            resume=args.resume, generator=gen, mesh=layout if sharded else None)
         if buffered:
-            q = b.draws()                                # (C, T, ...)
-        else:
+            q = gather(b.draws(), layout)                # (C, T, ...) on rank 0
+        elif not sharded:
             storage = "file"
             q = {kk: torch.from_numpy(v).transpose(0, 1) for kk, v in b.read().items()}
     sync()
     run_s = time.perf_counter() - t0
+    if not buffered and sharded:
+        from .io import assemble_shards, shard_paths
+
+        # every shard file is closed: rank 0 reads them all back
+        torch.distributed.barrier()
+        storage = "file"
+        q = (None if layout.rank != 0 else
+             {kk: torch.from_numpy(v).transpose(0, 1) for kk, v in
+              assemble_shards(shard_paths(args.save, layout.world_size)).items()})
+    if q is None:
+        return None
 
     # the rate counts the draws THIS call made (a resumed run restores the
     # earlier ones from the file): it ran the LAST len(infos) chunks, of which
@@ -330,7 +370,8 @@ def _run_mnist_nuts_batched(args, model, metric, qmap, X, y, gen, draw_buffer_th
     n_chunks = -(-args.samples // chunk)
     takes = [min(chunk, args.samples - i * chunk) for i in range(n_chunks)]
     made_draws = sum(takes[n_chunks - len(infos):]) if infos else 0
-    extra = {"sampler": "batched-nuts", "warmup_s": round(warm_s, 2), "chain_shards": 1,
+    extra = {"sampler": "batched-nuts", "warmup_s": round(warm_s, 2),
+             "chain_shards": layout.num_chain_shards,
              "resumed": resuming,
              "draws_per_sec": round(chains * made_draws / max(run_s, 1e-9), 1)}
 
@@ -372,10 +413,12 @@ def cmd_mnist_nuts(args, draw_buffer_threshold=None) -> dict:
     from .inference.sampling import init_chain_positions
     from .io import datasets
     from .models import Softmax
-    from .ops.kron_metric import cached_gn_setup
+    from .ops.kron_metric import shared_gn_setup
 
-    _refuse_unported(args)
-    dev = _device(args)
+    if args.chain_shards > 1 and (args.per_chain_nuts or args.diag_mass):
+        raise SystemExit("--chain-shards lays the lockstep chain-batched path over ranks; "
+                         "--per-chain-nuts and --diag-mass run in one process")
+    dev, layout = _join(args, "--chain-shards", num_chain_shards=args.chain_shards)
 
     if args.dataset == "digits":
         # real bundled pixels (scikit-learn's 8x8 digits), k/16: exact in bf16
@@ -386,7 +429,7 @@ def cmd_mnist_nuts(args, draw_buffer_threshold=None) -> dict:
         provenance = datasets.mnist_provenance(args.data)
     X, yi, y = _labelled(Xn, yn, NUM_CLASSES, dev)
     model = Softmax(dim=X.shape[1], n_classes=NUM_CLASSES, alpha=args.alpha)
-    gen = _generator(dev, args.seed)
+    gen = streams.block_generator(args.seed, dev, chain_block(layout, args.chains))
 
     setup_s, setup_cached = 0.0, False
     if args.diag_mass:
@@ -399,8 +442,8 @@ def cmd_mnist_nuts(args, draw_buffer_threshold=None) -> dict:
         # Kronecker Gauss-Newton metric + Newton MAP; no setup cache (every
         # stage takes well under a second on the card)
         t0 = time.perf_counter()
-        metric, _, qmap, setup_cached = cached_gn_setup(
-            X, y, model, alpha=args.alpha, newton_steps=60, cache_dir=None,
+        metric, _, qmap, setup_cached = shared_gn_setup(
+            X, y, model, alpha=args.alpha, layout=layout, newton_steps=60, cache_dir=None,
             provenance=provenance, seed=args.seed)
         adapt_mass = False
         if args.per_chain_nuts:
@@ -414,8 +457,11 @@ def cmd_mnist_nuts(args, draw_buffer_threshold=None) -> dict:
     if metric is not None and not args.per_chain_nuts:
         # the default: lockstep chain-batched NUTS on the fused value+grad,
         # one pass over the data per leaf for all chains
-        run_s, extra, dev_res = _run_mnist_nuts_batched(args, model, metric, qmap, X, y, gen,
-                                                        draw_buffer_threshold)
+        out = _run_mnist_nuts_batched(args, model, metric, qmap, X, y, gen, layout,
+                                      draw_buffer_threshold)
+        if out is None:                      # a rank other than 0
+            return None
+        run_s, extra, dev_res = out
         pm, pp, agg = dev_res["pm"], dev_res["pp"], dev_res["agg"]
         agg["diag_s"] = round(dev_res["diag_s"], 2)
     else:
@@ -475,8 +521,8 @@ def cmd_mnist_mlp_sgmcmc(args) -> dict:
     from .models import DropoutMLP
     from .ops.tree import tree_randn_like
 
-    _refuse_unported(args)
-    dev = _device(args)
+    dev, layout = _join(args, "--data-shards", num_data_shards=args.data_shards)
+    sharded = layout.distributed
     X, yi, y = _labelled(*datasets.mnist(args.data), NUM_CLASSES, dev)
     n = X.shape[0]
     model = DropoutMLP(dim=X.shape[1], hidden=args.hidden, n_classes=NUM_CLASSES,
@@ -488,7 +534,7 @@ def cmd_mnist_mlp_sgmcmc(args) -> dict:
 
     params0 = {k: v[None] for k, v in model.init_params(_generator(dev, args.seed), dev).items()}
     sgd_s = 0.0
-    if args.sgd_init_steps > 0:
+    if args.sgd_init_steps > 0 and layout.rank == 0:
         # warm start at an SGD mode: SG-MCMC burn-in from a cold Glorot init
         # would need O(1e5) steps just to travel to the typical set
         sgd_kernel = sgd_mod.build_sgd_kernel(model.make_batched_logdensity(data_size=n))
@@ -500,29 +546,63 @@ def cmd_mnist_mlp_sgmcmc(args) -> dict:
         _sync(dev)
         sgd_s = time.perf_counter() - t0
         params0 = sgd_state.position
+    if sharded:
+        # rank 0's warm start, on every rank
+        from .parallel.mesh import broadcast_object
+
+        got = broadcast_object(({k: v.cpu().numpy() for k, v in params0.items()}, sgd_s))
+        params0 = {k: torch.from_numpy(v).to(dev) for k, v in got[0].items()}
+        sgd_s = got[1]
 
     # chains are the leading axis, with jittered starts around the SGD mode,
-    # so that split R-hat and ESS are computable over the MLP draws
+    # so that split R-hat and ESS are computable over the MLP draws; a rank of
+    # a sharded run keeps its chain block
     chains = args.chains
+    block = chain_block(layout, chains)
     positions0 = {k: v.expand((chains,) + v.shape[1:]) for k, v in params0.items()}
     jitter = tree_randn_like(positions0, _generator(dev, args.seed + 4))
-    positions0 = {k: v + args.chain_jitter * jitter[k] for k, v in positions0.items()}
+    positions0 = {k: (v + args.chain_jitter * jitter[k])[block.start:block.stop]
+                  for k, v in positions0.items()}
 
+    if sharded:
+        # the value and gradient summed over the data shards of the chain block
+        from .parallel import make_sharded_value_and_grad
+
+        source = dict(value_and_grad_fn=make_sharded_value_and_grad(model, n, layout,
+                                                                     keyed=dropout))
+    else:
+        source = dict(logdensity_fn=logdensity)
     if args.algorithm == "sghmc":
-        kernel = sgmcmc.build_sghmc_kernel(logdensity, friction=args.friction, keyed=dropout)
+        kernel = sgmcmc.build_sghmc_kernel(friction=args.friction, keyed=dropout, **source)
         states = sgmcmc.sghmc_init(positions0)
     else:
-        kernel = sgmcmc.build_sgld_kernel(logdensity, keyed=dropout)
+        kernel = sgmcmc.build_sgld_kernel(keyed=dropout, **source)
         states = sgmcmc.sgld_init(positions0)
 
     t0 = time.perf_counter()
-    _, positions, infos = sgmcmc.run_sgmcmc_chains(
-        kernel, states, chains, (X, y), batch_size=args.batch_size, num_steps=args.num_steps,
-        step_size_schedule=sgmcmc.constant_schedule(args.step_size),
-        collect_every=args.collect_every, burnin_steps=args.burnin_steps,
-        generator=_generator(dev, args.seed + 1))
-    _sync(dev)
-    elapsed = time.perf_counter() - t0
+    schedule = sgmcmc.constant_schedule(args.step_size)
+    if sharded:
+        from .parallel import run_sgmcmc_data_parallel
+
+        _, positions, infos = run_sgmcmc_data_parallel(
+            kernel, states, chains, (X, y), layout, batch_size=args.batch_size,
+            num_steps=args.num_steps, step_size_schedule=schedule,
+            collect_every=args.collect_every, burnin_steps=args.burnin_steps,
+            generator=streams.block_generator(args.seed + 1, dev, block))
+        _sync(dev)
+        elapsed = time.perf_counter() - t0
+        gathered = gather((positions, infos), layout)
+        if layout.rank != 0:
+            return None
+        positions, infos = gathered
+    else:
+        _, positions, infos = sgmcmc.run_sgmcmc_chains(
+            kernel, states, chains, (X, y), batch_size=args.batch_size,
+            num_steps=args.num_steps, step_size_schedule=schedule,
+            collect_every=args.collect_every, burnin_steps=args.burnin_steps,
+            generator=_generator(dev, args.seed + 1))
+        _sync(dev)
+        elapsed = time.perf_counter() - t0
 
     # Mixing over the (chains, draws, ...) MLP draws.  Weight-space R-hat on a
     # deep net is ill-posed by construction (hidden-unit permutation symmetry:
@@ -593,7 +673,6 @@ def cmd_mnist_vi(args) -> dict:
     from .io import datasets
     from .models import DropoutMLP, Softmax
 
-    _refuse_unported(args)
     dev = _device(args)
     if args.dataset == "digits":
         Xn, yn = datasets.digits()
@@ -654,8 +733,13 @@ def cmd_plantvillage_smc(args) -> dict:
     from .io import datasets
     from .models import Softmax
 
-    _refuse_unported(args)
-    dev = _device(args)
+    if args.shard_particles:
+        # the particle axis over every rank of the torchrun group (one rank
+        # alone holds them all)
+        dev, layout = _join(args, "--shard-particles")
+    else:
+        dev, layout = _device(args), RankLayout(1, 1, 0)
+    block = chain_block(layout, args.particles)
     Xn, yn = datasets.plantvillage_features(args.data, n=args.n_data)
     k = int(yn.max()) + 1
     X, yi, y = _labelled(Xn, yn, k, dev)
@@ -675,8 +759,9 @@ def cmd_plantvillage_smc(args) -> dict:
     for fn in (log_prior, log_lik, log_lik_batch):
         fn.chain_batched = True
 
-    particles = init_chain_positions(model.init_params, args.particles,
-                                     generator=_generator(dev, args.seed), device=dev)
+    particles = init_chain_positions(model.init_params, block.size,
+                                     generator=streams.block_generator(args.seed, dev, block),
+                                     device=dev)
     smc_kwargs = dict(
         kernel_builder=lambda ld: hmc.build_kernel(ld, args.num_steps),
         init_builder=lambda ld: (lambda p: hmc.init(p, ld)),
@@ -687,10 +772,15 @@ def cmd_plantvillage_smc(args) -> dict:
                           data=(X, y), batch_size=args.batch_size)
 
     t0 = time.perf_counter()
-    state, info = smc.run_tempered_smc(particles, log_prior, log_lik, **smc_kwargs,
-                                       generator=_generator(dev, args.seed + 1))
+    state, info = smc.run_tempered_smc(
+        particles, log_prior, log_lik, **smc_kwargs,
+        generator=streams.block_generator(args.seed + 1, dev, block),
+        layout=layout if layout.distributed else None)
     _sync(dev)
     elapsed = time.perf_counter() - t0
+    state = state._replace(particles=gather(state.particles, layout))
+    if layout.rank != 0:
+        return None
 
     pm = {kk: v.mean(dim=0) for kk, v in state.particles.items()}
     pp = posterior_predictive_probs(lambda p, x: model.predict(p, x, prob=True),
@@ -760,8 +850,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "on the MNIST-scale whitened posterior 0.5 is the ESS/s "
                         "optimum, but on sklearn-digits 0.5 halves min ESS")
     p.add_argument("--chain-shards", type=int, default=1,
-                   help=">1: lay the chain axis across devices (not ported yet: the "
-                        "parallel/ layer)")
+                   help=">1: lay the chains over this many ranks, one process each, under "
+                        "torchrun (--nproc-per-node N); must divide --chains.  Each rank "
+                        "warms up and samples its block on a stream that carries the block, "
+                        "and no shard index enters any stream, so the adapted step sizes and "
+                        "the draws do not depend on the shard count beyond the rounding of "
+                        "block-sized products: they are those of the same blocks run in one "
+                        "process, bit for bit")
+    _dist_backend(p)
     p.add_argument("--per-chain-nuts", action="store_true",
                    help="use the per-chain NUTS kernel on the plain value+grad "
                         "instead of the default lockstep chain-batched kernel on "
@@ -779,8 +875,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "SGD mode; enables ESS / split-R-hat diagnostics)")
     p.add_argument("--chain-jitter", type=float, default=0.02)
     p.add_argument("--data-shards", type=int, default=1,
-                   help=">1: minibatch gradients summed across data shards (not ported "
-                        "yet: the parallel/ layer)")
+                   help=">1: under torchrun, split the rows over this many ranks per chain "
+                        "block (ranks / N chain blocks); each gathers batch-size / N local "
+                        "rows a step and the gradients are summed over the block's ranks")
+    _dist_backend(p)
     p.add_argument("--hidden", type=int, default=256)
     p.add_argument("--alpha", type=float, default=1.0)
     p.add_argument("--p-drop", type=float, default=0.1)
@@ -836,8 +934,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch-size", type=int, default=512,
                    help="minibatch size for --mutation sghmc")
     p.add_argument("--shard-particles", action="store_true",
-                   help="lay the particle axis across devices (not ported yet: the "
-                        "parallel/ layer)")
+                   help="lay the particles over the ranks of the torchrun group (each "
+                        "mutates its block; the ladder and the resampler run on the "
+                        "all-gathered weights)")
+    _dist_backend(p)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu only when named)")

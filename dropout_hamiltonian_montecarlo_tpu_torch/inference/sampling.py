@@ -8,8 +8,9 @@ forms sample in chunks and hand each chunk's draws to a backend: a file
 (``DeviceBackend``), or both (``TeeDeviceBackend``).  With a checkpoint file
 a streaming run can be stopped and resumed, and then appends exactly the
 draws the uninterrupted run would have: chunk i draws only from the
-generator of (run seed, sample stream, i) (ops/streams.py).  Sharding the
-chain axis over processes (``mesh=``) waits for the ``parallel/`` layer.
+generator of (run seed, sample stream, i) (ops/streams.py).  With
+``mesh=`` (a ``parallel.RankLayout``) the chain axis is sharded over ranks:
+each rank streams its chain block, and the checkpoint stays global.
 """
 
 from __future__ import annotations
@@ -337,21 +338,31 @@ def sample_batched_streaming(
     take precedence (a checkpoint without an inverse mass keeps the
     caller's).  Resuming a finished run appends nothing.
 
-    ``mesh``: sharding the chain axis over processes is not ported yet."""
+    ``mesh``: a ``parallel.RankLayout`` to shard the chain axis over ranks.
+    ``states``, ``step_sizes`` and ``inv_mass`` are then this rank's chain
+    block, ``generator`` carries the block (``parallel.chain_block``), and
+    each chunk runs on the block and appends the block's draws to this rank's
+    ``backend``.  The info summaries are means over ALL chains (one
+    all-gather of the chunk's info a chunk).  The checkpoint stays
+    global, as the JAX package's: after an all-gather of the states, rank 0
+    alone writes it, and a resuming rank reads its block's rows from it."""
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh: chain sharding is not ported yet (ROADMAP queue 1, the parallel/ layer)")
+        from ..parallel.mesh import chain_block, check_block
+
+        check_block(generator, chain_block(mesh, step_sizes.shape[0] * mesh.num_chain_shards))
     states, appended, info_summaries, _, _ = _stream_chunks(
         kernel, states, step_sizes, inv_mass, backend, num_samples, chunk_size, transform,
-        checkpoint_path, resume, generator)
+        checkpoint_path, resume, generator, mesh)
     return states, appended, info_summaries
 
 
 def _stream_chunks(kernel, states, step_sizes, inv_mass, backend, num_samples, chunk_size,
-                   transform, checkpoint_path, resume, generator):
+                   transform, checkpoint_path, resume, generator, layout=None):
     """The chunk loop of both streaming samplers.  Returns (states, appended,
-    info_summaries, step_sizes, inv_mass), the last two as resumed."""
+    info_summaries, step_sizes, inv_mass), the last two as resumed.
+    ``layout``: the chain axis sharded over ranks (``sample_batched_streaming``)."""
     from ..io.checkpoint import checkpoint_groups, load_checkpoint, save_checkpoint
+    from ..parallel.mesh import all_gather_cat, gather
 
     if generator is None:
         raise ValueError("a streaming run needs an explicit torch.Generator for its seed")
@@ -364,8 +375,10 @@ def _stream_chunks(kernel, states, step_sizes, inv_mass, backend, num_samples, c
         extras_like = {"step_size": step_sizes}
         if "inv_mass" in checkpoint_groups(checkpoint_path):
             extras_like["inv_mass"] = inv_mass
-        states, seed, appended, extras = load_checkpoint(checkpoint_path, states,
-                                                         extras_like=extras_like)
+        # a sharded run's checkpoint is global: a rank reads its block's rows
+        states, seed, appended, extras = load_checkpoint(
+            checkpoint_path, states, extras_like=extras_like,
+            block=block if layout is not None and layout.distributed else None)
         step_sizes = extras["step_size"]
         inv_mass = extras.get("inv_mass", inv_mass)
         if appended < num_samples and appended % chunk_size != 0:
@@ -394,10 +407,22 @@ def _stream_chunks(kernel, states, step_sizes, inv_mass, backend, num_samples, c
         if transform is not None:
             pos = transform(pos)
         backend.append({k: v.transpose(0, 1) for k, v in pos.items()})
-        fields = [torch.stack(f).to(torch.float32).mean() for f in zip(*infos)]
-        info_summaries.append(type(infos[0])(*torch.stack(fields).tolist()))
+        fields = [torch.stack(f).to(torch.float32) for f in zip(*infos)]
+        if layout is not None and layout.distributed:
+            # every chain's info, so that the mean is the one-process mean
+            fields = all_gather_cat(torch.stack(fields), layout.chains_group, dim=2).unbind(0)
+        means = torch.stack([f.mean() for f in fields])
+        info_summaries.append(type(infos[0])(*means.tolist()))
         appended += take
         if checkpoint_path is not None:
-            save_checkpoint(checkpoint_path, states, seed=seed, step=appended,
-                            extras={"step_size": step_sizes, "inv_mass": inv_mass})
+            extras = {"step_size": step_sizes, "inv_mass": inv_mass}
+            if layout is not None and layout.distributed:
+                # one global checkpoint: rank 0 writes the gathered blocks
+                whole = gather((states, extras), layout)
+                if layout.rank == 0:
+                    save_checkpoint(checkpoint_path, whole[0], seed=seed, step=appended,
+                                    extras=whole[1])
+            else:
+                save_checkpoint(checkpoint_path, states, seed=seed, step=appended,
+                                extras=extras)
     return states, appended, info_summaries, step_sizes, inv_mass

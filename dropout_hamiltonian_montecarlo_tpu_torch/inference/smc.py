@@ -1,7 +1,7 @@
 """Adaptive tempered Sequential Monte Carlo with systematic resampling.
 
 - the particles are a dict with leading axis N, which is the chain axis of
-  the mutation kernels: one device holds them all;
+  the mutation kernels: one device holds them all, or each rank a block;
 - the temperature ladder lambda: 0 -> 1 is adapted so that the effective
   sample size of the incremental weights stays at target_ess * N (bisection
   on the device);
@@ -13,6 +13,17 @@
 The stage loop runs on the host and reads ``lmbda`` once a stage (its stop
 test); nothing else inside a stage is read back.  The tempered density closes
 over ``lmbda`` as a device scalar, so the mutation kernel is built once.
+
+Particle sharding (``layout=``): each rank holds a block of the particles and
+mutates it with a generator that carries the block (``ops/streams.py``), so
+its draws are the one-process run's rows.  A stage all-gathers the particles'
+log likelihoods and log weights (2 N floats) and runs the ladder step, the
+ESS, the evidence increment and the systematic resampler on the global
+vectors, the one-process code on the same numbers on every rank; then one
+all-gather of the particles, from which each rank takes its block's parents.
+The mutation's acceptance is gathered too and averaged as in one process.  So
+a run on one rank is the one-process run, bit for bit, and on several ranks it
+differs only where a block's arithmetic rounds otherwise than the full batch's.
 """
 
 from __future__ import annotations
@@ -25,6 +36,26 @@ from ..ops import streams
 from ..ops.integrators import lift_value
 from ..ops.tree import Params, tree_ones_like
 from .sgmcmc import SGMCMCDraws, build_sghmc_kernel, sghmc_init
+
+
+def _block_rows(given, block):
+    """One round's injected draws (HMC keyword draws or ``SGMCMCDraws``) at
+    the rows of a particle block: every tensor with a particle axis is cut,
+    the shared minibatch ``indices`` are not."""
+    def cut(tree):
+        if isinstance(tree, torch.Tensor):
+            return tree[block.start:block.stop]
+        if isinstance(tree, dict):
+            return {k: cut(v) for k, v in tree.items()}
+        if isinstance(tree, tuple):
+            return type(tree)(*map(cut, tree)) if hasattr(tree, "_fields") else tuple(
+                map(cut, tree))
+        return tree
+
+    if isinstance(given, SGMCMCDraws):
+        return given._replace(noise=cut(given.noise), momentum=cut(given.momentum),
+                              masks=cut(given.masks))
+    return cut(given)
 
 
 class SMCState(NamedTuple):
@@ -127,6 +158,7 @@ def run_tempered_smc(
     *,
     generator: Optional[torch.Generator] = None,
     draws: Optional[Sequence[SMCDraws]] = None,
+    layout=None,
 ) -> Tuple[SMCState, SMCInfo]:
     """Adaptive tempered SMC from the prior sample to the posterior.
 
@@ -148,11 +180,30 @@ def run_tempered_smc(
     One shared minibatch per round serves every particle.  SGHMC has no MH
     accept, so the stage acceptance is NaN and the step size is not adapted.
 
-    ``draws``: one ``SMCDraws`` per stage in place of the generator."""
+    ``draws``: one ``SMCDraws`` per stage in place of the generator (their
+    tensors at the GLOBAL particle count under ``layout``).
+
+    ``layout``: a ``parallel.RankLayout`` whose chains axis carries the
+    particles (see the module docstring).  ``initial_particles`` are then
+    this rank's block, the generator carries
+    ``parallel.chain_block(layout, N)``, and the returned state holds the
+    block (its log evidence and lambda are global, the same on every rank)."""
+    from ..parallel.mesh import all_gather_cat, chain_block, check_block
+
     state = init(initial_particles)
     n = state.log_weights.shape[0]
     device = state.log_weights.device
     f32 = dict(dtype=torch.float32, device=device)
+    group = layout.chains_group if layout is not None else None
+    block = None
+    if group is not None:
+        block = chain_block(layout, n * layout.num_chain_shards)
+        if draws is None:
+            check_block(generator, block)
+
+    def gathered(t, dim=0):
+        """Every particle's values of a per-particle tensor (particles on ``dim``)."""
+        return t if group is None else all_gather_cat(t, group, dim=dim)
     if mutation not in ("hmc", "sghmc"):
         raise ValueError(f"unknown mutation {mutation!r}")
     if mutation == "hmc" and (kernel_builder is None or init_builder is None):
@@ -189,7 +240,7 @@ def run_tempered_smc(
                 given = rounds[i] if rounds is not None else {"generator": generator}
                 states, info = kernel(states, eps.expand(n), inv_mass, **given)
                 accs.append(info.acceptance_prob)
-            return states.position, torch.stack(accs).mean()
+            return states.position, gathered(torch.stack(accs), dim=1).mean()
     else:
         data_size = data[0].shape[0]
         scale = data_size / batch_size
@@ -221,28 +272,41 @@ def run_tempered_smc(
     stages = 0
     while stages < max_stages and float(state.lmbda) < 1.0:     # the stage's one read
         given = draws[stages] if draws is not None else None
-        loglik = loglik_all(state.particles)
-        new_lmbda = _solve_next_lambda(loglik, state.log_weights, state.lmbda, target_ess)
-        log_w = state.log_weights + (new_lmbda - state.lmbda) * loglik
+        rounds = given.rounds if given is not None else None
+        if rounds is not None and block is not None:
+            rounds = [_block_rows(r, block) for r in rounds]
+        if group is None:
+            loglik, prev_w = loglik_all(state.particles), state.log_weights
+        else:
+            # every particle's log likelihood and weight, on every rank
+            loglik, prev_w = gathered(torch.stack([loglik_all(state.particles),
+                                                   state.log_weights], dim=1)).unbind(1)
+        new_lmbda = _solve_next_lambda(loglik, prev_w, state.lmbda, target_ess)
+        log_w = prev_w + (new_lmbda - state.lmbda) * loglik
         stage_ess = ess_from_log_weights(log_w)
         # evidence increment, before the weights are reset by the resampling
         log_evidence = state.log_evidence + (torch.logsumexp(log_w, dim=0)
-                                             - torch.logsumexp(state.log_weights, dim=0))
+                                             - torch.logsumexp(prev_w, dim=0))
 
         idx = systematic_resample(log_w, u0=given.u0 if given is not None else None,
                                   generator=generator)
-        particles = {k: v[idx] for k, v in state.particles.items()}
+        if block is None:
+            particles = {k: v[idx] for k, v in state.particles.items()}
+        else:
+            # a block's parents may lie in any block
+            idx = idx[block.start:block.stop]
+            particles = {k: gathered(v)[idx] for k, v in state.particles.items()}
 
         lam.copy_(new_lmbda)
-        particles, acceptance = mutate(particles, eps,
-                                       given.rounds if given is not None else None)
+        particles, acceptance = mutate(particles, eps, rounds)
 
         traces[:, stages] = torch.stack([new_lmbda, stage_ess, acceptance, eps])
         if adapt_step_size:     # for the NEXT stage, from this stage's acceptance
             eps = torch.clamp(eps * torch.exp(acceptance - target_mutation_accept), 1e-8, 1e3)
-        state = SMCState(particles, torch.zeros_like(log_w), new_lmbda, log_evidence)
+        state = SMCState(particles, torch.zeros_like(state.log_weights), new_lmbda,
+                         log_evidence)
         stages += 1
 
-    info = SMCInfo(state.lmbda, ess_from_log_weights(state.log_weights), acceptance,
+    info = SMCInfo(state.lmbda, ess_from_log_weights(gathered(state.log_weights)), acceptance,
                    torch.tensor(stages, dtype=torch.int32, device=device), *traces)
     return state, info

@@ -124,14 +124,22 @@ class ShardedHDF5Backend:
     indices once (``__chain_indices__``), so ``assemble_shards`` can put the
     draws back in global chain order.  With the defaults (process 0, all
     chains) this is one file holding every chain, so one caller serves both.
-    Blocks are (draws, chains, ...)."""
+    Blocks are (draws, chains, ...).
+
+    In a joined ``torch.distributed`` group the writers check at their first
+    append that no two of them claim a chain: one all-gather of the index
+    lists over ``group`` (default: every rank; the ranks of ``group`` are the
+    ones that write, and each must append), and a clash raises on every rank
+    before anything is written."""
 
     def __init__(self, base_path: str, mode: str = "a", chain_axis: int = 1,
-                 process_index: int = 0, chain_indices=None):
+                 process_index: int = 0, chain_indices=None, group=None):
         self.process_index = int(process_index)
         self.path = shard_paths(base_path, self.process_index + 1)[-1]
         self.chain_axis = chain_axis
         self._chain_indices = chain_indices
+        self._group = group
+        self._checked = False
         self._b = HDF5Backend(self.path, mode)
         # a reopened shard file pins this process's chains: an append whose
         # chains differ (another layout of processes) raises instead of
@@ -149,6 +157,9 @@ class ShardedHDF5Backend:
                     f"chain ownership mismatch: shard file holds global chains "
                     f"{self._indices.tolist()} but this append's chains are {idx.tolist()}: "
                     f"the process layout differs from the earlier appends")
+        if not self._checked:
+            _check_no_clash(self._indices, self.process_index, self._group)
+            self._checked = True
         self._b.append(positions)
         if CHAIN_INDICES not in self._b._f:
             self._b._f.create_dataset(CHAIN_INDICES, data=self._indices)
@@ -171,6 +182,28 @@ class ShardedHDF5Backend:
 
     def __exit__(self, *exc):
         self.close()
+
+
+def _check_no_clash(indices, process_index: int, group) -> None:
+    """Raise when another writer of ``group`` claims one of ``indices``
+    (nothing to check outside a joined group)."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        return
+    claims = [None] * dist.get_world_size(group)
+    dist.all_gather_object(claims, (process_index, np.asarray(indices).tolist()), group=group)
+    owner: Dict[int, int] = {}
+    clashes = []
+    for proc, idx in claims:
+        for c in idx:
+            if c in owner:
+                clashes.append((c, owner[c], proc))
+            owner.setdefault(c, proc)
+    if clashes:
+        raise ValueError("shard writers claim the same chains: "
+                         + ", ".join(f"chain {c} by processes {a} and {b}"
+                                     for c, a, b in clashes[:8]))
 
 
 def shard_paths(base_path: str, num_processes: int) -> List[str]:

@@ -90,11 +90,15 @@ def save_checkpoint(path: str, state: Any, *, seed: int, step: int,
 
 
 def load_checkpoint(path: str, state_like: Any,
-                    extras_like: Optional[Dict[str, Any]] = None):
+                    extras_like: Optional[Dict[str, Any]] = None, block=None):
     """Load a checkpoint written by ``save_checkpoint``.  The trees are
     rebuilt in the structure of the templates, every leaf on its template's
     device and in its dtype; a leaf whose shape differs from its template's
     raises ``ValueError``.  Returns (state, seed, step, extras).
+
+    ``block`` (an ``ops.streams.ChainBlock``): the checkpoint is global and
+    every leaf has a leading chain axis; the templates are one rank's block
+    of it, and each leaf is read at the block's rows.
 
     A checkpoint of the JAX package (``__key__`` and no ``__seed__``) raises
     ``ValueError``: checkpoints are not portable between the packages."""
@@ -113,6 +117,11 @@ def load_checkpoint(path: str, state_like: Any,
         def unpack(prefix, like):
             def leaf(name, template):
                 arr = data[f"{prefix}::{name}"]
+                if block is not None:
+                    if arr.shape[:1] != (block.global_chains,):
+                        raise ValueError(f"checkpoint leaf {prefix}::{name} shape {arr.shape} "
+                                         f"has no chain axis of {block.global_chains}")
+                    arr = arr[block.start:block.stop]
                 if tuple(arr.shape) != tuple(template.shape):
                     raise ValueError(f"checkpoint leaf {prefix}::{name} shape {arr.shape} != "
                                      f"template {tuple(template.shape)}")

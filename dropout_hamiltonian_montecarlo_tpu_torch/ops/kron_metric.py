@@ -70,6 +70,9 @@ class KronMetric:
     'bias': (..., K)} dicts; every map accepts any leading batch (chain) axes."""
 
     def __init__(self, gram, fisher, alpha: float, device):
+        # the host float64 inputs: a metric rebuilt from them is this one, bit
+        # for bit (shared_gn_setup sends them to the other ranks)
+        self.gram, self.fisher = gram, fisher
         s_g, U_g = gram
         s_a, U_a = fisher
         f32 = dict(dtype=torch.float32, device=device)
@@ -335,6 +338,34 @@ def cached_gn_setup(X: torch.Tensor, y_onehot: torch.Tensor, model, alpha: float
         save_gn_setup(path, gram, fisher, qmap)
     aux = dict(metric.aux, timings=timings)
     return metric, aux, qmap, False
+
+
+def shared_gn_setup(X: torch.Tensor, y_onehot: torch.Tensor, model, alpha: float,
+                    layout=None, **kwargs):
+    """``cached_gn_setup`` for every rank of a sharded run: rank 0 computes it
+    and sends the host float64 pieces (Gram and class-Fisher eigenpairs) and
+    the MAP to the others, which rebuild the metric from them.  So every
+    rank samples under the same metric, bit for bit, whatever its own
+    eigensolver would have returned.  Without a joined group (``layout`` None
+    or without process groups) it is ``cached_gn_setup``."""
+    if layout is None or not layout.distributed:
+        return cached_gn_setup(X, y_onehot, model, alpha, **kwargs)
+    from ..parallel.mesh import broadcast_object
+
+    mine = None
+    if layout.rank == 0:
+        mine = cached_gn_setup(X, y_onehot, model, alpha, **kwargs)
+        metric, aux, qmap, cached = mine
+        payload = (metric.gram, metric.fisher,
+                   {k: v.cpu().numpy() for k, v in qmap.items()}, aux["timings"], cached)
+    else:
+        payload = None
+    gram, fisher, qmap_np, timings, cached = broadcast_object(payload)
+    if mine is not None:
+        return mine
+    metric = KronMetric(gram, fisher, alpha, X.device)
+    qmap = {k: torch.as_tensor(v, device=X.device) for k, v in qmap_np.items()}
+    return metric, dict(metric.aux, timings=timings), qmap, cached
 
 
 def load_gn_setup(npz_path: str, alpha: float, device):

@@ -31,6 +31,16 @@ def device_trace(logdir: str):
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
+def device_seconds(prof) -> float:
+    """The device's kernel and copy seconds in a finished ``torch.profiler``
+    span (``device_trace``): each event's own device time, so an operator's
+    row does not count its kernels twice."""
+    from torch.autograd import DeviceType
+
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e6
+
+
 @dataclass
 class SamplerStats:
     """Accumulates wall-clock seconds and draw / gradient counts.  The caller

@@ -5,8 +5,8 @@ tests/test_nuts_batched.py::test_mnist_nuts_cli_digits_batched, configs 1 and
 against the JAX CLI's line of the same subcommand (without ``compile_s``:
 the port compiles nothing), configs 4, 5 and 6 (``mnist-mlp-sgmcmc``,
 ``plantvillage-smc``, ``mnist-vi``) at tiny sizes, ``--data PATH`` on the four
-subcommands that take it, and the options that are not ported yet.  Imports
-no jax."""
+subcommands that take it, and the options that lay a run over ranks, which
+outside torchrun exit with the command to use.  Imports no jax."""
 
 import contextlib
 import io
@@ -203,16 +203,32 @@ def test_plantvillage_smc_cli_on_cpu(one_thread, mutation, extra):
         assert agg["predictive_accuracy"] > 0.5
 
 
-PARALLEL = r"not ported yet \(ROADMAP queue 1, the parallel/ layer\)"
+TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "MASTER_ADDR",
+                "MASTER_PORT")
 
 
 @pytest.mark.parametrize("argv, what", [
-    (["mnist-mlp-sgmcmc", "--data-shards", "2"], "--data-shards > 1"),
-    (["plantvillage-smc", "--shard-particles"], "--shard-particles"),
+    (["mnist-mlp-sgmcmc", "--data-shards", "2"], "--data-shards"),
+    (["plantvillage-smc", "--shard-particles", "--n-data", "60", "--particles", "8",
+      "--mcmc-steps", "1"], None),
 ], ids=["data-shards", "shard-particles"])
-def test_single_device_configs_refuse_unported_options(argv, what):
-    with pytest.raises(NotImplementedError, match=f"{what}.* {PARALLEL}"):
-        cli.main(argv + ["--device", "cpu"])
+def test_single_device_configs_refuse_unported_options(argv, what, monkeypatch):
+    """Outside torchrun, --data-shards 2 exits with the torchrun command to
+    use (nothing falls back to one process); --shard-particles lays the
+    particles over every rank of the group, so alone one rank holds them
+    all and the line says it was sharded."""
+    for k in TORCHRUN_ENV:
+        monkeypatch.delenv(k, raising=False)
+    if what is not None:
+        with pytest.raises(SystemExit, match=f"{what} runs one process per rank.*torchrun "
+                                             f"--standalone --nproc-per-node 2"):
+            cli.main(argv + ["--device", "cpu"])
+    else:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cli.main(argv + ["--device", "cpu"])
+        agg = json.loads(out.getvalue().strip().splitlines()[-1])
+        assert agg["shard_particles"] is True and math.isfinite(agg["log_evidence"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(argv[:1])
@@ -229,9 +245,17 @@ def test_small_configs_refuse_unported_options(sub):
             cli.main([sub])
 
 
-@pytest.mark.parametrize("extra", [["--chain-shards", "2"]], ids=["chain-shards"])
-def test_cli_unported_options_raise(extra):
-    with pytest.raises(NotImplementedError, match=PARALLEL):
+@pytest.mark.parametrize("extra, match", [
+    (["--chain-shards", "2"], "--chain-shards runs one process per rank.*torchrun"),
+    (["--chain-shards", "2", "--per-chain-nuts"], "--per-chain-nuts and --diag-mass run in one"),
+    (["--chain-shards", "2", "--diag-mass"], "--per-chain-nuts and --diag-mass run in one"),
+], ids=["chain-shards", "per-chain-nuts", "diag-mass"])
+def test_cli_unported_options_raise(extra, match, monkeypatch):
+    """--chain-shards outside torchrun, and with the per-chain modes that it
+    does not shard, exits: no silent run in one process."""
+    for k in TORCHRUN_ENV:
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(SystemExit, match=match):
         cli.main(["mnist-nuts", "--device", "cpu"] + extra)
 
 

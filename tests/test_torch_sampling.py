@@ -19,6 +19,7 @@ from dropout_hamiltonian_montecarlo_tpu.inference import hmc as jhmc  # noqa: E4
 from dropout_hamiltonian_montecarlo_tpu.inference import sampling as jsampling  # noqa: E402
 from dropout_hamiltonian_montecarlo_tpu.io import datasets as jdatasets  # noqa: E402
 from dropout_hamiltonian_montecarlo_tpu_torch import models  # noqa: E402
+from dropout_hamiltonian_montecarlo_tpu_torch.parallel import RankLayout  # noqa: E402
 from dropout_hamiltonian_montecarlo_tpu_torch.diagnostics import summarize  # noqa: E402
 from dropout_hamiltonian_montecarlo_tpu_torch.inference import hmc, nuts  # noqa: E402
 from dropout_hamiltonian_montecarlo_tpu_torch.inference import sampling  # noqa: E402
@@ -217,12 +218,13 @@ def test_sampling_functions_check_their_arguments():
     with pytest.raises(ValueError, match="3 chains"):
         sampling.sample_posterior_streaming(init_fn, kernel, pos, sampling.DeviceBackend(),
                                             num_samples=2, num_chains=4, generator=gen)
-    # the one option of the streaming samplers that still waits: chain sharding
+    # chain sharding: the generator must carry the rank's chain block
     state = hmc.init(pos, ld)
-    with pytest.raises(NotImplementedError, match=r"not ported yet \(ROADMAP queue 1, .*parallel/"):
+    with pytest.raises(ValueError, match="chain block"):
         sampling.sample_batched_streaming(kernel, state, torch.full((3,), 0.25),
                                           {"x": torch.ones(3, 2)}, sampling.DeviceBackend(),
-                                          num_samples=2, mesh=object(), generator=gen)
+                                          num_samples=2, mesh=RankLayout(2, 1, 0),
+                                          generator=gen)
     with pytest.raises(ValueError, match="explicit torch.Generator"):
         sampling.sample_batched_streaming(kernel, state, torch.full((3,), 0.25),
                                           {"x": torch.ones(3, 2)}, sampling.DeviceBackend(),

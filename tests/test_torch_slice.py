@@ -143,9 +143,13 @@ def test_bench_entry_point_on_cpu():
 
 @pytest.mark.parametrize("env", [{"BENCH_CHAIN_SHARDS": "2"}])
 def test_bench_unported_options_raise(env, monkeypatch):
+    """BENCH_CHAIN_SHARDS > 1 outside torchrun exits with the command to use:
+    no silent run in one process."""
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(SystemExit, match="torchrun --standalone --nproc-per-node 2"):
         bench.main(["--device", "cpu"])
 
 
