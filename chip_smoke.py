@@ -89,7 +89,7 @@ Phases, one line each (any failure exits non-zero):
      fails the run with the ranks' log.  Then each phase checks its steps:
  16. chain shards: the HMC headline of phase 4 through ``BENCH_CHAIN_SHARDS=2``
      (2 ranks x 64 chains, 50 warmup + 100 draws, rank 0's sampling loop
-     under the profiler for its busy share) must equal the same two blocks
+     under the profiler, the program's spans on) must equal the same two blocks
      run in this process through the sharded code BIT FOR BIT (a sha256 a
      chain), with 9 grad-only + 1 value+grad launches a draw on each rank;
      against phase 4's unblocked draws (the kernel's backward slices depend
@@ -306,13 +306,21 @@ def smc_round(torch, sgmcmc, mutation, state, info, log_prior, log_lik, kw):
     return step
 
 
+def device_seconds(prof) -> float:
+    """The device's kernel and copy seconds in a finished ``torch.profiler``
+    session: each event's own device time, so an operator's row does not
+    count its kernels twice."""
+    from torch.autograd import DeviceType
+
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e6
+
+
 def busy_share(torch, step, n):
     """(ms per call of ``step``, device-busy share): the kernel time that
     torch.profiler sums over ``n`` calls, over the wall time of ``n``
     unprofiled calls.  The share is None if the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
-
-    from dropout_hamiltonian_montecarlo_tpu_torch.utils.profiling import device_seconds
 
     step()
     torch.cuda.synchronize()
@@ -964,7 +972,7 @@ def phase_chain_shards(torch, bench, cli, nuts_batched, sg, ranks, unblocked, le
     det = rec["detail"]
     out["two_ranks"] = {key: det[key] for key in (
         "chain_shards", "acceptance", "ess_median", "ess_min", "sample_seconds",
-        "sample_seconds_per_rank", "sampling_busy_share", "kernel_launches_per_rank",
+        "sample_seconds_per_rank", "kernel_launches_per_rank",
         "step_size_median")}
     out["two_ranks"].update(median_ess_per_sec=rec["value"], backend=two[0]["backend"],
                             seconds_per_rank=[round(r["seconds"], 2) for r in two])

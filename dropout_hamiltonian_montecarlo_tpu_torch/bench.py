@@ -28,11 +28,9 @@ Pipeline (the JAX package's bench.py, same settings):
 
 BENCH_KERNEL=0 runs the plain PyTorch value+grad in place of the fused kernel
 (one bench A/B of kernel against plain; the line then says "kernel": "plain").
-BENCH_TRACE=DIR wraps the sampling loop in a torch.profiler span, writes
-DIR/trace.json (utils.profiling.device_trace; DIR/rank<r>/trace.json for
-each rank under BENCH_CHAIN_SHARDS) and reports the loop's busy share
-(``detail.sampling_busy_share``, rank 0's under BENCH_CHAIN_SHARDS; null
-without a trace).
+BENCH_TRACE=DIR wraps the sampling loop in a torch.profiler span, with the
+program's spans on, and writes DIR/trace.json (utils.profiling.device_trace;
+DIR/rank<r>/trace.json for each rank under BENCH_CHAIN_SHARDS).
 
 BENCH_CHAIN_SHARDS=N lays the chains over N ranks, one process each, started
 by torchrun:
@@ -92,9 +90,7 @@ def run(*, device, chains: int = 128, warmup: int = 300, draws: int = 1000,
     ``chees`` tunes HMC's L (ignored under NUTS, as in the JAX bench);
     ``use_kernel=False`` runs the plain PyTorch value+grad in place of the
     fused kernel; ``trace_dir`` profiles the sampling loop into that folder
-    and reports its busy share (the device's kernel and copy seconds over
-    the loop's seconds, the profiler's own host cost included; this
-    process's loop under a layout).
+    (this process's loop under a layout).
 
     ``layout`` (``parallel.RankLayout``): this rank's chain block of
     ``chains``.  With process groups the record is rank 0's, over all chains,
@@ -120,7 +116,7 @@ def run(*, device, chains: int = 128, warmup: int = 300, draws: int = 1000,
     from .ops.tree import tree_ones_like
     from .parallel.chains import sample_batched_sharded
     from .parallel.mesh import RankLayout, all_gather_cat, chain_block, gather
-    from .utils.profiling import SamplerStats, device_seconds, device_trace
+    from .utils.profiling import SamplerStats, device_trace
 
     full_f32_precision()
     dev = torch.device(device)
@@ -243,7 +239,7 @@ def run(*, device, chains: int = 128, warmup: int = 300, draws: int = 1000,
     # trace is written
     st = init(warm_state.position, batched_vag)
     leaves_before = kernel.leaves_executed if use_nuts else 0
-    with device_trace(trace_dir) if trace_dir else contextlib.nullcontext() as prof:
+    with device_trace(trace_dir) if trace_dir else contextlib.nullcontext():
         stats = SamplerStats(num_chains=c).start()
         _, e, infos = sample_batched_sharded(
             kernel, st, warm_step, warm_inv_mass, draws,
@@ -256,7 +252,6 @@ def run(*, device, chains: int = 128, warmup: int = 300, draws: int = 1000,
         executed = (kernel.leaves_executed - leaves_before if use_nuts
                     else draws * num_integration_steps)
         t_sample = stats.stop(draws=c * draws, grad_evals=c * executed).seconds
-    busy = device_seconds(prof) / t_sample if prof is not None and dev.type == "cuda" else None
     launches = dict(launch_counts)
     e_w, e_b = e["weights"], e["bias"]
     accepted = infos.is_accepted if keep_draws else None
@@ -346,7 +341,6 @@ def run(*, device, chains: int = 128, warmup: int = 300, draws: int = 1000,
                 [{"value_and_grad": int(r[1]), "grad": int(r[2])} for r in per_rank]),
             "sample_seconds_per_rank": (None if per_rank is None
                                         else [float(r[0]) for r in per_rank]),
-            "sampling_busy_share": busy,
             "sampler": sampler,
             "nuts_depth_cap": nuts_cap if use_nuts else None,
             "nuts_depth_mode": ("auto" if nuts_auto else "fixed") if use_nuts else None,

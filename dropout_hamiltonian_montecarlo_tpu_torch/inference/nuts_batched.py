@@ -35,12 +35,14 @@ so a step consumes the same random numbers however many leaves it runs.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, NamedTuple, Optional
 
 import torch
 
 from ..ops import streams
 from ..ops.tree import Params, tree_batch_ravel
+from ..utils import profiling
 from .nuts import NUTSInfo, NUTSState, _bit_count, _trailing_ones
 
 
@@ -107,9 +109,10 @@ class _PendingFlag:
             self._host = flag
 
     def read(self) -> bool:
-        if self._event is not None:
-            self._event.synchronize()
-        return bool(self._host)
+        with profiling.span("nuts.flag_wait"):
+            if self._event is not None:
+                self._event.synchronize()
+            return bool(self._host)
 
 
 def batched_init(positions: Params, value_and_grad_fn: Callable) -> NUTSState:
@@ -140,6 +143,20 @@ class BatchedNUTSKernel:
     def __call__(self, state: NUTSState, step_sizes: torch.Tensor,
                  inv_mass: Optional[Params], *, draws: Optional[NUTSDraws] = None,
                  generator: Optional[torch.Generator] = None):
+        with contextlib.ExitStack() as phase:
+            return self._step(phase, state, step_sizes, inv_mass, draws, generator)
+
+    def _step(self, phase: contextlib.ExitStack, state: NUTSState, step_sizes: torch.Tensor,
+              inv_mass: Optional[Params], draws: Optional[NUTSDraws],
+              generator: Optional[torch.Generator]):
+        # The step's host phases are spans (utils/profiling.py), none inside
+        # another, and ``phase`` holds the open one: nuts.begin up to the
+        # first leaf; a leaf's nuts.flag_wait (in _PendingFlag.read: the host
+        # blocked on the card), then its nuts.leaf (the leaf's enqueue, ending
+        # with the next leaf's flag); each depth's nuts.merge (the subtree
+        # merged into the tree, then the next subtree's start and first flag,
+        # or the step's result).
+        phase.enter_context(profiling.span("nuts.begin"))
         max_depth = self.max_tree_depth
         z0, unravel = tree_batch_ravel(state.position)              # (C, D)
         g0, _ = tree_batch_ravel(state.logdensity_grad)
@@ -201,10 +218,11 @@ class BatchedNUTSKernel:
             log_weight = torch.full_like(zeros_c, -float("inf"))
             sum_accept, num_leaves = zeros_c, int_c
             diverging, turning = false_c, false_c
+            mask = active & ~(diverging | turning)                    # (C,)
+            flag = _PendingFlag(mask)
 
             for i in range(2 ** depth):
-                mask = active & ~(diverging | turning)                # (C,)
-                flag = _PendingFlag(mask)
+                phase.close()
                 if self.sync_lag == 0:
                     if not flag.read():
                         stop = True
@@ -216,6 +234,7 @@ class BatchedNUTSKernel:
                         stop = True
                         break
                     pending = flag
+                phase.enter_context(profiling.span("nuts.leaf"))
                 self.leaves_executed += 1
                 maskc = mask[:, None]
 
@@ -264,7 +283,12 @@ class BatchedNUTSKernel:
                 num_leaves = num_leaves + mask.to(torch.int32)
                 diverging = torch.where(mask, div_new, diverging)
                 turning = torch.where(mask, turn_new, turning)
+                if i + 1 < 2 ** depth:
+                    mask = active & ~(diverging | turning)
+                    flag = _PendingFlag(mask)
 
+            phase.close()
+            phase.enter_context(profiling.span("nuts.merge"))
             # merge the subtree into the tree (the JAX outer loop's body)
             z_left = torch.where(posc, tree.z_left, z)
             r_left = torch.where(posc, tree.r_left, r)

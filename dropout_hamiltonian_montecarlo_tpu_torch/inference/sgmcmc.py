@@ -22,6 +22,7 @@ import torch
 
 from ..ops import streams
 from ..ops.tree import Params, tree_batch_randn_like, tree_batch_ravel, tree_zeros_like
+from ..utils import profiling
 
 Batch = Tuple[torch.Tensor, ...]
 
@@ -251,32 +252,40 @@ def build_sghmc_kernel(logdensity_fn: Callable = None, friction: float = 1.0,
 
     def draw(state: SGHMCState, batch: Batch, generator: torch.Generator) -> SGMCMCDraws:
         q = state.position
-        return SGMCMCDraws(
-            noise=tuple(tree_batch_randn_like(q, generator) for _ in range(num_leapfrog)),
-            momentum=tree_batch_randn_like(q, generator) if refresh_momentum else None,
-            masks=tuple(draw_masks(q, batch, generator)
-                        for _ in range(num_leapfrog + 1)) if keyed else ())
+        with profiling.span("sghmc.draw"):
+            return SGMCMCDraws(
+                noise=tuple(tree_batch_randn_like(q, generator) for _ in range(num_leapfrog)),
+                momentum=tree_batch_randn_like(q, generator) if refresh_momentum else None,
+                masks=tuple(draw_masks(q, batch, generator)
+                            for _ in range(num_leapfrog + 1)) if keyed else ())
 
     def step(state: SGHMCState, batch: Batch, step_size, *,
              draws: Optional[SGMCMCDraws] = None,
              generator: Optional[torch.Generator] = None):
         if draws is None:
             draws = draw(state, batch, generator)
-        step_size = _as_scalar(step_size, state.position)
-        damp = 1.0 - friction * step_size
-        noise_scale = (2.0 * friction * temperature * step_size) ** 0.5
-        # positions and momenta as (C, P) matrices, all leaves side by side:
-        # one launch per term of the update, not one per leaf (the step is
-        # bound by the host's launches); the log density sees dict views
-        q, unravel = tree_batch_ravel(state.position)
-        v = tree_batch_ravel(draws.momentum if refresh_momentum else state.momentum)[0]
+        # spans: sghmc.update around the state's ravels and again around each
+        # inner step's update, sghmc.grad around each inner step's gradient
+        with profiling.span("sghmc.update"):
+            step_size = _as_scalar(step_size, state.position)
+            damp = 1.0 - friction * step_size
+            noise_scale = (2.0 * friction * temperature * step_size) ** 0.5
+            # positions and momenta as (C, P) matrices, all leaves side by
+            # side: one launch per term of the update, not one per leaf (the
+            # step is bound by the host's launches); the log density sees
+            # dict views
+            q, unravel = tree_batch_ravel(state.position)
+            v = tree_batch_ravel(draws.momentum if refresh_momentum else state.momentum)[0]
         for i in range(num_leapfrog):
-            _, grad = vag(unravel(q), batch, draws.masks[i] if keyed else None)
-            g, noise = tree_batch_ravel(grad)[0], tree_batch_ravel(draws.noise[i])[0]
-            v = torch.addcmul(torch.addcmul(damp * v, g, step_size), noise, noise_scale)
-            q = torch.addcmul(q, v, step_size)
-        position = unravel(q)
-        value = value_fn(position, batch, draws.masks[num_leapfrog] if keyed else None)
+            with profiling.span("sghmc.grad"):
+                _, grad = vag(unravel(q), batch, draws.masks[i] if keyed else None)
+            with profiling.span("sghmc.update"):
+                g, noise = tree_batch_ravel(grad)[0], tree_batch_ravel(draws.noise[i])[0]
+                v = torch.addcmul(torch.addcmul(damp * v, g, step_size), noise, noise_scale)
+                q = torch.addcmul(q, v, step_size)
+        with profiling.span("sghmc.value"):
+            position = unravel(q)
+            value = value_fn(position, batch, draws.masks[num_leapfrog] if keyed else None)
         return SGHMCState(position, unravel(v), value), SGMCMCInfo(value, step_size)
 
     step.draw = draw
@@ -325,9 +334,10 @@ def run_sgmcmc_chains(
 
     def one_step(state, t):
         given = next(draws) if draws is not None else None
-        idx = given.indices if given is not None else streams.randint(
-            0, n_data, (num_chains, batch_size), generator=generator, device=device)
-        batch = tuple(d[idx] for d in data)
+        with profiling.span("sghmc.batch"):
+            idx = given.indices if given is not None else streams.randint(
+                0, n_data, (num_chains, batch_size), generator=generator, device=device)
+            batch = tuple(d[idx] for d in data)
         state, info = kernel(state, batch, step_size_schedule(t), draws=given,
                              generator=generator)
         return state, t + 1.0, info

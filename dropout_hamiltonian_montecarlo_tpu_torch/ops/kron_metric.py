@@ -26,6 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils import profiling
 from . import streams
 from .metrics import Metric
 from .softmax_glm import split_bf16_input
@@ -464,11 +465,21 @@ def make_whitened_fused_vag(model, metric: KronMetric, qmap: Params, batch,
         dQ = metric.unwhiten(E)
         return {k: qmap[k][None] + dQ[k] for k in qmap}
 
+    # spans: the map into parameter space, the fused call, the map back
     def batched_vag(E: Params):
-        value, G = fused_q(to_params(E))
-        return value, metric.unwhiten_transpose(G)
+        with profiling.span("vag.unwhiten"):
+            Q = to_params(E)
+        with profiling.span("vag.kernel"):
+            value, G = fused_q(Q)
+        with profiling.span("vag.unwhiten_t"):
+            return value, metric.unwhiten_transpose(G)
 
     def batched_grad(E: Params) -> Params:
-        return metric.unwhiten_transpose(fused_g(to_params(E)))
+        with profiling.span("vag.unwhiten"):
+            Q = to_params(E)
+        with profiling.span("vag.kernel"):
+            G = fused_g(Q)
+        with profiling.span("vag.unwhiten_t"):
+            return metric.unwhiten_transpose(G)
 
     return batched_vag, batched_grad

@@ -1,4 +1,22 @@
-"""A profiler span, throughput counters and a CUDA-event kernel timer."""
+"""The program's named spans, a profiler span, throughput counters and a
+CUDA-event kernel timer.
+
+Spans.  The samplers mark their host phases with ``span(name)``.  Off (the
+default) a span is one shared no-op: it reads no clock and opens no
+``record_function``.  ``enable(True)`` turns them on: each span then adds its
+host seconds (``time.perf_counter``) and one call to an in-memory table that
+``totals()`` copies out, and, while a ``torch.profiler`` session records,
+also opens ``torch.profiler.record_function(name)``, so that the span lands
+in the session's Chrome trace on the profiler's clock beside the kernels
+launched inside it.  The names, each documented where it is opened:
+
+- ``nuts.begin``, ``nuts.flag_wait``, ``nuts.leaf``, ``nuts.merge``:
+  ``inference/nuts_batched.py``;
+- ``vag.unwhiten``, ``vag.kernel``, ``vag.unwhiten_t``:
+  ``ops/kron_metric.py::make_whitened_fused_vag``;
+- ``sghmc.batch``, ``sghmc.draw``, ``sghmc.grad``, ``sghmc.update``,
+  ``sghmc.value``: ``inference/sgmcmc.py``.
+"""
 
 from __future__ import annotations
 
@@ -6,39 +24,82 @@ import contextlib
 import os
 import time
 from dataclasses import dataclass
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+
+_enabled = False
+_table: Dict[str, list] = {}        # name -> [calls, host seconds]
+
+
+_OFF = contextlib.nullcontext()        # every span while the facility is off
+
+
+class _Span:
+    __slots__ = ("name", "t0", "annotation")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.annotation = None
+        if torch.autograd._profiler_enabled():
+            self.annotation = torch.profiler.record_function(self.name)
+            self.annotation.__enter__()
+        self.t0 = time.perf_counter()
+        return None
+
+    def __exit__(self, *exc):
+        seconds = time.perf_counter() - self.t0
+        if self.annotation is not None:
+            self.annotation.__exit__(*exc)
+        entry = _table.setdefault(self.name, [0, 0.0])
+        entry[0] += 1
+        entry[1] += seconds
+        return False
+
+
+def enable(on: bool) -> bool:
+    """Turns the spans on or off; returns whether they were on."""
+    global _enabled
+    was, _enabled = _enabled, bool(on)
+    return was
+
+
+def span(name: str):
+    """A context manager over one phase called ``name``; see the module
+    docstring."""
+    return _Span(name) if _enabled else _OFF
+
+
+def totals() -> Dict[str, Tuple[int, float]]:
+    """A copy of the table: name -> (calls, host seconds) of every span
+    closed while the facility was on, over the whole process."""
+    return {name: (int(calls), float(seconds)) for name, (calls, seconds) in _table.items()}
 
 
 @contextlib.contextmanager
 def device_trace(logdir: str):
     """A ``torch.profiler`` span over the ``with`` body: host and (on a CUDA
     machine) device activity, written as a Chrome trace
-    ``<logdir>/trace.json`` (Perfetto and chrome://tracing read it).  Yields
-    the profiler, whose ``key_averages()`` holds the per-op times after the
-    body."""
+    ``<logdir>/trace.json`` (Perfetto and chrome://tracing read it), with
+    the program's spans on for the body.  Yields the profiler, whose
+    ``key_averages()`` holds the per-op times after the body."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield prof
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
+    was = enable(True)
+    try:
+        with profile(activities=activities) as prof:
+            yield prof
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+    finally:
+        enable(was)
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
-
-
-def device_seconds(prof) -> float:
-    """The device's kernel and copy seconds in a finished ``torch.profiler``
-    span (``device_trace``): each event's own device time, so an operator's
-    row does not count its kernels twice."""
-    from torch.autograd import DeviceType
-
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e6
 
 
 @dataclass
