@@ -13,7 +13,9 @@ Phases, one line each (any failure exits non-zero):
      small ragged shapes (X on the 8-bit grid; X off it, which runs the X_lo
      passes; K = 7), at the bench shape (N=60000, D=784, K=10, C=128, X on
      the 8-bit grid) and at the sharded phases' shapes (C=64; N=30000 with
-     include_prior=False); per-call and per-stage times from CUDA events;
+     include_prior=False); per-call and per-stage times from CUDA events,
+     and the forward's work items, persistent blocks and
+     forward_items_overlapped;
   4. main path: the port bench (synthetic MNIST 60000 x 784, full metric
      setup, 128 chains, L=10, target 0.5) cut to 50 warmup steps and 100
      draws; its JSON line, checks on its outputs, and the kernel launch
@@ -1308,7 +1310,16 @@ def main() -> None:
         call = sg.KernelCall(split, Yb, Wb, bb, with_value=full)
         stages[name] = {st: cuda_time_ms(getattr(call, st), 10, 2)
                         for st in ("forward", "backward", "finish")}
-    print("phase 3 ms per stage: " + json.dumps(stages), flush=True)
+        stages[name].update(forward_items=call.n_items, forward_blocks=call.grid)
+    # the persistent forward's engagement: one counted call of each variant
+    sg.reset_launch_counts()
+    for full in (True, False):
+        sg.softmax_value_and_grad(Xb, Yb, Wb, bb, alpha, fwd_full=full, x_split=split)
+    overlapped = sg.forward_items_overlapped
+    if overlapped != sum(st["forward_items"] - st["forward_blocks"] for st in stages.values()):
+        fail(f"forward_items_overlapped {overlapped} != items - blocks of the two calls")
+    print("phase 3 ms per stage: " + json.dumps(stages)
+          + f"; forward_items_overlapped {overlapped} (one call of each variant)", flush=True)
     ms_full = cuda_time_ms(
         lambda: sg.softmax_value_and_grad(Xb, Yb, Wb, bb, alpha, x_split=split), 10, 3)
     ms_grad = cuda_time_ms(lambda: sg.softmax_value_and_grad(

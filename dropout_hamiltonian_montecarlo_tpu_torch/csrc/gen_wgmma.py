@@ -10,9 +10,9 @@ thread), so each width needs its own spelled-out asm statement.
 
 from pathlib import Path
 
-# chain groups of 16 x K classes for K = 2..16, and of 8 x K for K = 10..16
-# (the value variant's narrower blocks)
-WIDTHS = sorted({16 * k for k in range(2, 17)} | {8 * k for k in range(10, 17)})
+# chain groups of 16 x K classes for K = 2..16, and of 8 x K for K = 8..16
+# (the narrower work items of the value variant from K = 8, grad-only from 12)
+WIDTHS = sorted({16 * k for k in range(2, 17)} | {8 * k for k in range(8, 17)})
 
 HEADER = """\
 // Generated by gen_wgmma.py; do not edit.

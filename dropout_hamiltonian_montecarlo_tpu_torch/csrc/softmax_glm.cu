@@ -30,22 +30,45 @@
 // the GEMM main loops run at the rate at which L2 feeds the SMs: on an H100
 // SXM (700 W) the gradient GEMM moves ~6.6 TB/s of tiles, ~55% of the bf16
 // peak.  Each stage therefore loads its A tile once for all the B pieces it
-// multiplies, and the forward blocks of a row tile run next to each other (X
-// from HBM once, from L2 after).  The forward's epilogue (Z staging, softmax,
-// R^T stores) takes about as long as its main loop again (per 128-row tile:
-// 13 us of main loop, 8.5 us of epilogue, grad-only) and nothing overlaps it,
-// since one block fills an SM; overlapping it is the next step.
+// multiplies, the forward's items of a row tile run next to each other (X
+// from HBM once, from L2 after), and a ring needs 3 stages in flight to keep
+// a 160-wide main loop fed (with 2 it runs at half speed).  The forward's
+// epilogue (Z staging, softmax, R^T stores) would take about as long as its
+// main loop again if it ran after it in the same block, so it runs under the
+// next item's main loop.  Per item at the bench shape (clock64, H100 SXM at
+// 700 W, cycles / 1.98 GHz): grad-only 12.9 us of main loop against 8.1 us of
+// epilogue work; value 11.6 us against 6.3.  The forward is bound by its main
+// loops, within ~15% (grad-only) and ~20% (value) of the time the same TMA
+// loads take with no arithmetic at all.
 //
 // Design: three kernels, no atomics, deterministic.
-//   1. glm_forward_kernel: one block per (128-row tile, chain group of 16
-//      chains; 8 for the value variant from K = 10).  A producer warp streams
-//      stages (X tile + every W piece tile of a 64-wide D step) through a ring
-//      in shared memory with TMA (128-byte swizzle; the ragged D and N edges
-//      read as zeros), two consumer warpgroups run wgmma m64n(G*K)k16 into f32
-//      registers.  Epilogue: Z is staged through shared memory (in the ring),
-//      the per-(row, chain) stable softmax gives ll (per tile and chain) and
-//      R, and R is written transposed, as bf16 hi and lo pieces R^T
-//      (2, C*K, N): the layout the gradient GEMM reads K-major.
+//   1. glm_forward_kernel: persistent, one block of 512 threads an SM (at
+//      most one per work item), walking work items (128-row tile, chain group
+//      of 16 chains; 8 for the value variant from K = 8 and grad-only from K =
+//      12) b, b + grid, ...  Warp roles, with registers split by setmaxnreg
+//      (128 a thread at launch):
+//        - warpgroup 3, 40 registers: one thread streams stages (X tile + every
+//          W piece tile of a 64-wide D step) through a ring in shared memory
+//          with TMA (128-byte swizzle; the ragged D and N edges read as
+//          zeros); one warp copies the next item's labels (transposed) and
+//          bias into one of two buffers;
+//        - warpgroups 0-1 (MMA), 184 registers: wgmma m64n(G*K)k16 into f32
+//          registers, then the item's logits into Z in shared memory in two
+//          column halves (one where a half would not end at a chain's edge
+//          and a multiple of 8 columns): the first right after the main loop,
+//          the second held in registers and handed over halfway through the
+//          next item's main loop, so Z needs half a tile of room;
+//        - warpgroup 2 (epilogue), 104 registers: per Z part, each lane takes
+//          a (chain, 64-row half) unit's rows 2l and 2l + 1: the stable
+//          softmax per (row, chain), the rows' ll terms (summed per tile and
+//          chain in a fixed order), and R written straight from its registers
+//          as bf16 hi and lo pairs into R^T (2, C*K, N): the layout the
+//          gradient GEMM reads K-major.
+//      Shared memory (grad-only, K = 10): 3 stages of 56 KB, Z 41.3 KB
+//      (transposed: 80 x 132 floats, conflict-free writes and float2 reads),
+//      2 x 5.1 KB of labels, 2 x 640 B of bias: 222 KB; the value variant
+//      (80 wide, 3 W pieces): 4 stages of 46 KB.  Barriers: the ring's
+//      full/empty per stage, Z full/empty, labels full/empty per buffer.
 //   2. glm_backward_kernel: gW_aug (D+1, C*K) = X_aug^T R, a wgmma GEMM with
 //      A = X^T (D+1, N) and B = R^T (C*K, N), both K-major over N.  Row D of
 //      X_aug^T is all ones, so row D of the product is gb.  Output tiles are
@@ -64,48 +87,88 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "wgmma.cuh"
 
 namespace {
 
-constexpr int kBM = 128;                 // rows of A per block: two warpgroups of 64
+constexpr int kBM = 128;                 // rows of A per tile: two warpgroups of 64
 constexpr int kBK = 64;                  // reduction step: 64 bf16 = one 128-byte row
-constexpr int kConsumerThreads = 256;    // two consumer warpgroups
-constexpr int kThreads = kConsumerThreads + 32;   // + one producer warp
+constexpr int kConsumerThreads = 256;    // two MMA warpgroups
+constexpr int kThreads = kConsumerThreads + 32;   // backward: + one producer warp
+constexpr int kEpiThreads = 128;         // forward: one epilogue warpgroup
+constexpr int kFwdThreads = kConsumerThreads + kEpiThreads + 128;   // + a producer warpgroup
 constexpr int kBwdBN = 160;              // output columns per backward block
-constexpr int kRingBudget = 196608;      // bytes of shared memory for the stage ring
+constexpr int kSmemMax = 232448;         // shared memory a block can have
 constexpr int kMaxStages = 6;
 
-// Shared-memory layout of a block whose B tiles are BN rows wide and whose
-// stages hold one A tile and the NB B tiles (pieces) that multiply it:
-// [ring of stages: A (128 x 64 bf16), B_0 .. B_{NB-1} (BN x 64 bf16)]
-// [full barriers] [empty barriers] [256 floats of reduction scratch]
-// [the forward's Y tile (128 x K <= 16 floats)] [its bias (BN floats)].
-// The forward epilogue reuses the ring for Z (128 x (BN + 1) floats).  One
-// block fills an SM: two would leave 96 registers a thread, fewer than the 80
-// accumulators of a 160-wide tile need.
-template <int BN_, int NB_>
+// Registers a thread of each forward warpgroup keeps after setmaxnreg: the
+// 512 threads start with 128 each (all 65,536 of the SM); the producer gives
+// most of its share to the MMA warpgroups, whose accumulators (BN/2 floats,
+// twice that for the value variant's promotion) and held second Z part (BN/4)
+// need it.
+constexpr int kProducerRegs = 40;
+constexpr int kMmaRegs = 184;
+constexpr int kEpiRegs = 104;
+static_assert(kProducerRegs + 2 * kMmaRegs + kEpiRegs <= 65536 / 128, "register file");
+
+// A ring of stages in shared memory, each holding one A tile (128 x 64 bf16)
+// and the NB B tiles (pieces, BN x 64 bf16) that multiply it, followed by a
+// full and an empty barrier a stage.  As many stages as `budget` bytes hold,
+// at least 2 and at most kMaxStages.
+template <int BN_, int NB_, int budget>
 struct Ring {
   static constexpr int BN = BN_;
   static constexpr int NB = NB_;
   static constexpr int a_bytes = kBM * kBK * 2;
   static constexpr int b_bytes = BN * kBK * 2;
   static constexpr int stage_bytes = a_bytes + NB * b_bytes;
-  static constexpr int budget = kRingBudget > 2 * stage_bytes ? kRingBudget : 2 * stage_bytes;
   static constexpr int stages =
       budget / stage_bytes < kMaxStages ? budget / stage_bytes : kMaxStages;
   static constexpr int ring_bytes = stages * stage_bytes;
-  static constexpr int zpitch = BN + 1;
   static constexpr int bar_offset = ring_bytes;
-  static constexpr int red_offset = bar_offset + 2 * stages * 8;
-  static constexpr int ys_offset = red_offset + kConsumerThreads * 4;
-  static constexpr int bs_offset = ys_offset + kBM * 16 * 4;
-  static constexpr int smem_bytes = 1024 + bs_offset + BN * 4;   // +1024: alignment
+  static constexpr int end = bar_offset + 2 * stages * 8;
+  static_assert(stages >= 2, "a ring needs two stages");
   static_assert(BN % 8 == 0 && BN >= 32 && BN <= 256, "wgmma width");
   static_assert(b_bytes % 1024 == 0, "128-byte swizzled tiles must start 1024-byte aligned");
-  static_assert(kBM * zpitch * 4 <= ring_bytes, "Z staging must fit in the ring");
-  static_assert(smem_bytes <= 232448, "shared memory per block");
 };
+
+// The forward block's shared memory: [ring] [its barriers] [Z full, Z empty,
+// labels full x 2, labels empty x 2] [Z: one part of an item's logits,
+// transposed: zcols x 132 floats] [2 x the item's labels, transposed: K x
+// 128 floats] [2 x its bias: BN floats] [value only: the rows' log-likelihood
+// terms, G x 128 floats]; the ring takes what the rest leaves.  Z lies
+// outside the ring, so the MMA warpgroups run the next item's main loop while
+// the epilogue reads this item's Z.  It holds half the columns where the half
+// ends at a chain's edge and a multiple of 8 columns (the MMA warpgroups hand
+// the second half over from registers, halfway through the next main loop):
+// with the full Z, a 160-wide tile would leave room for 2 stages, which do
+// not keep enough bytes in flight to feed its main loop.
+template <int K, int G, int NB, bool VALUE>
+struct FwdLayout {
+  static constexpr int BN = G * K;
+  static constexpr int zparts = (G / 2) * K % 8 == 0 ? 2 : 1;
+  static constexpr int zcols = BN / zparts;
+  static constexpr int zpitch = kBM + 4;   // conflict-free Z writes, float2 reads
+  static constexpr int ys_floats = K * kBM;
+  static constexpr int ll_floats = VALUE ? G * kBM : 0;
+  static constexpr int rest = 6 * 8 + (zcols * zpitch + 2 * (ys_floats + BN) + ll_floats) * 4;
+  using R = Ring<BN, NB, kSmemMax - 1024 - rest - 2 * kMaxStages * 8>;
+  static constexpr int zbar_offset = R::end;
+  static constexpr int zs_offset = zbar_offset + 6 * 8;
+  static constexpr int ys_offset = zs_offset + zcols * zpitch * 4;
+  static constexpr int bs_offset = ys_offset + 2 * ys_floats * 4;
+  static constexpr int ll_offset = bs_offset + 2 * BN * 4;
+  static constexpr int smem_bytes = 1024 + ll_offset + ll_floats * 4;   // +1024: alignment
+  static_assert(smem_bytes <= kSmemMax, "shared memory per block");
+};
+
+// The backward block's: [ring] [its barriers].  One block fills an SM: two
+// would leave 96 registers a thread, fewer than the 80 accumulators of a
+// 160-wide tile need.
+using BwdRing = Ring<kBwdBN, 2, 196608>;   // the R pieces; 192 KB: 3 stages
+constexpr int kBwdSmemBytes = 1024 + BwdRing::end;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -176,8 +239,17 @@ __device__ __forceinline__ void fence_operands(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-__device__ __forceinline__ void consumer_sync() {
-  asm volatile("bar.sync 1, %0;" ::"n"(kConsumerThreads) : "memory");
+__device__ __forceinline__ void epilogue_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(kEpiThreads) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
 }
 
 __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
@@ -186,34 +258,41 @@ __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
 
 // full[s]: the stage's loads landed; empty[s]: its consumers are done.
 template <class R>
-__device__ __forceinline__ void init_barriers(uint64_t* full, uint64_t* empty) {
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < R::stages; ++s) {
-      mbar_init(smem_u32(&full[s]), 1);
-      mbar_init(smem_u32(&empty[s]), kConsumerThreads / 32);   // one arrival per consumer warp
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+__device__ __forceinline__ void init_ring_barriers(uint64_t* full, uint64_t* empty) {
+  for (int s = 0; s < R::stages; ++s) {
+    mbar_init(smem_u32(&full[s]), 1);
+    mbar_init(smem_u32(&empty[s]), kConsumerThreads / 32);   // one arrival per consumer warp
   }
-  __syncthreads();
 }
 
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// The ring's stages are used in one sequence over all the block's work:
+// stage use g (counted from 0 at the block's start) lands in stage g % stages
+// in round g / stages.  produce and consume each take the first use of their
+// n_iter, g0.
+//
 // Producer: for iteration it, waits for the stage to be free, then
 // load(it, stage address, barrier) announces the stage's bytes on the barrier
 // and starts its TMA loads (A at the stage address, B_j after it).
 template <class R, class Load>
 __device__ __forceinline__ void produce(uint8_t* ring, uint64_t* full, uint64_t* empty,
-                                        int n_iter, Load load) {
+                                        uint32_t g0, int n_iter, Load load) {
   for (int it = 0; it < n_iter; ++it) {
-    const int s = it % R::stages;
-    const uint32_t round = it / R::stages;
-    mbar_wait(smem_u32(&empty[s]), (round & 1) ^ 1);
+    const uint32_t g = g0 + it;
+    const int s = g % R::stages;
+    mbar_wait(smem_u32(&empty[s]), ((g / R::stages) & 1) ^ 1);
     load(it, smem_u32(ring + s * R::stage_bytes), smem_u32(&full[s]));
   }
 }
 
 // Consumers: acc (64 rows of this warpgroup x BN) = sum over the stages of
 // A_stage[64 wg .. 64 wg + 63] * (B_0 + ... + B_{n-1})^T, where a stage
-// holds n = n_prod(it) products.
+// holds n = n_prod(it) products.  Every stage is handed back when its wgmma
+// are done.  hook(it) runs once stage it's wgmma are issued (and, promoted,
+// done); it must not touch acc.
 //
 // The tensor cores add into their f32 accumulators with truncation, so a
 // long chain of wgmma into one accumulator drifts toward zero by about half
@@ -224,9 +303,10 @@ __device__ __forceinline__ void produce(uint8_t* ring, uint64_t* full, uint64_t*
 // product's partial sum.  It costs BN/2 registers and a wait per product (the
 // other warpgroup's wgmma fill it), so only the value variant's forward takes
 // it; the gradients are well inside their bound without it.
-template <class R, bool PROMOTE, class NProd>
+template <class R, bool PROMOTE, class NProd, class Hook>
 __device__ __forceinline__ void consume(uint8_t* ring, uint64_t* full, uint64_t* empty,
-                                        int n_iter, NProd n_prod, float (&acc)[R::BN / 2]) {
+                                        uint32_t g0, int n_iter, NProd n_prod,
+                                        float (&acc)[R::BN / 2], Hook hook) {
   constexpr int BN = R::BN;
   const uint32_t wg_a = (threadIdx.x / 128) * (64 * kBK * 2);
   const bool warp_leader = threadIdx.x % 32 == 0;
@@ -237,8 +317,9 @@ __device__ __forceinline__ void consume(uint8_t* ring, uint64_t* full, uint64_t*
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) part[i] = 0.f;
     for (int it = 0; it < n_iter; ++it) {
-      const int s = it % R::stages;
-      mbar_wait(smem_u32(&full[s]), (it / R::stages) & 1);
+      const uint32_t g = g0 + it;
+      const int s = g % R::stages;
+      mbar_wait(smem_u32(&full[s]), (g / R::stages) & 1);
       const uint32_t stage = smem_u32(ring + s * R::stage_bytes);
       const uint64_t da = sw128_desc(stage + wg_a);
       const int n = n_prod(it);
@@ -258,12 +339,14 @@ __device__ __forceinline__ void consume(uint8_t* ring, uint64_t* full, uint64_t*
           for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];
         }
       }
+      hook(it);
       if (warp_leader) mbar_arrive(smem_u32(&empty[s]));
     }
   } else {
     for (int it = 0; it < n_iter; ++it) {
-      const int s = it % R::stages;
-      mbar_wait(smem_u32(&full[s]), (it / R::stages) & 1);
+      const uint32_t g = g0 + it;
+      const int s = g % R::stages;
+      mbar_wait(smem_u32(&full[s]), (g / R::stages) & 1);
       const uint32_t stage = smem_u32(ring + s * R::stage_bytes);
       const uint64_t da = sw128_desc(stage + wg_a);
       const int n = n_prod(it);
@@ -279,13 +362,15 @@ __device__ __forceinline__ void consume(uint8_t* ring, uint64_t* full, uint64_t*
         }
       }
       asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+      hook(it);
       asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
       fence_operands(acc);
       // the previous stage's wgmma are done: hand its buffers back
-      if (it > 0 && warp_leader) mbar_arrive(smem_u32(&empty[(it - 1) % R::stages]));
+      if (it > 0 && warp_leader) mbar_arrive(smem_u32(&empty[(g - 1) % R::stages]));
     }
     asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
     fence_operands(acc);
+    if (n_iter > 0 && warp_leader) mbar_arrive(smem_u32(&empty[(g0 + n_iter - 1) % R::stages]));
   }
 }
 
@@ -297,36 +382,69 @@ __device__ __forceinline__ int acc_row(int t, int e) {
 __device__ __forceinline__ int acc_col(int t, int j, int e) { return 8 * j + 2 * (t % 4) + e % 2; }
 
 // ---- 1. forward + softmax epilogue -----------------------------------------
-// Chains per block: 16, or 8 for the value variant from K = 10 on, whose
-// promoted accumulators would not fit in the registers at 16 x K columns.
+// Chains per work item: 16, or 8 where a 16-chain item's Z and two stages
+// would not fit in shared memory (grad-only from K = 12) or its promoted
+// and held accumulators in the MMA warpgroups' registers (the value variant
+// from K = 8).
 template <int K, bool VALUE>
-__host__ __device__ constexpr int chain_group() { return VALUE && K >= 10 ? 8 : 16; }
+__host__ __device__ constexpr int chain_group() { return K >= (VALUE ? 8 : 12) ? 8 : 16; }
 
 template <int K, bool VALUE>
-__global__ void __launch_bounds__(kThreads, 1)
+using FwdLayoutOf = FwdLayout<K, chain_group<K, VALUE>(), VALUE ? 3 : 2, VALUE>;   // the W pieces
+
+// Z use w of a block (its items' parts in order): waits for the epilogue to
+// let go of use w - 1, writes v's first 8 NQ columns of this thread's
+// accumulator layout into Z (transposed: column-major, ZPITCH floats a
+// column), announces them.
+template <int NQ, int ZPITCH, int NV>
+__device__ __forceinline__ void hand_over_z(float* zs, uint64_t* zfull, uint64_t* zempty,
+                                            uint32_t w, const float (&v)[NV]) {
+  const int t = threadIdx.x;
+  mbar_wait(smem_u32(zempty), (w & 1) ^ 1);
+#pragma unroll
+  for (int q = 0; q < NQ; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) zs[acc_col(t, q, e) * ZPITCH + acc_row(t, e)] = v[4 * q + e];
+  mbar_arrive(smem_u32(zfull));
+}
+
+// Persistent: block b does the work items b, b + gridDim.x, ...; item i is
+// (row tile i / n_groups, chain group i % n_groups), so the groups of a row
+// tile run at once on neighbouring blocks.  Warpgroups: 0-1 MMA (main loop,
+// then Z into shared memory), 2 the epilogue (softmax, ll partials, R^T
+// stores), 3 the producer (a thread issues the TMA loads, a warp copies the
+// labels and bias an item ahead).  The epilogue of item j runs while the MMA
+// warpgroups run item j + 1's main loop.
+template <int K, bool VALUE>
+__global__ void __launch_bounds__(kFwdThreads, 1)
 glm_forward_kernel(const __grid_constant__ CUtensorMap tm_x,    // X_hi (N, D)
                    const __grid_constant__ CUtensorMap tm_xlo,  // X_lo (N, D), or tm_x
                    const __grid_constant__ CUtensorMap tm_w,    // W pieces (NB, C*K, D)
                    const float* __restrict__ Y,                 // (N, K)
                    const float* __restrict__ b2,                // (C*K,)
                    __nv_bfloat16* __restrict__ rt,              // (2, C*K, ldr)
-                   float* __restrict__ ll_part,                 // (n_tiles, C) or null
+                   float* __restrict__ ll_part,                 // (n_tiles, C), VALUE only
                    int N, int D, int C, int ldr, int has_xlo) {
   constexpr int G = chain_group<K, VALUE>();
   constexpr int BN = G * K;
-  using R = Ring<BN, VALUE ? 3 : 2>;   // the W pieces
+  using L = FwdLayoutOf<K, VALUE>;
+  using R = typename L::R;
+  constexpr int ZP = L::zparts;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ring = align1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + R::bar_offset);
   uint64_t* empty = full + R::stages;
-  float* red = reinterpret_cast<float*>(ring + R::red_offset);
-  float* ys = reinterpret_cast<float*>(ring + R::ys_offset);
-  float* bs = reinterpret_cast<float*>(ring + R::bs_offset);
+  uint64_t* zfull = reinterpret_cast<uint64_t*>(ring + L::zbar_offset);
+  uint64_t* zempty = zfull + 1;
+  uint64_t* yfull = zfull + 2;    // [2]: the labels and bias of buffer b landed
+  uint64_t* yempty = zfull + 4;   // [2]: the epilogue is done with buffer b
+  float* zs = reinterpret_cast<float*>(ring + L::zs_offset);
+  float* ys = reinterpret_cast<float*>(ring + L::ys_offset);
+  float* bs = reinterpret_cast<float*>(ring + L::bs_offset);
+  float* llrow = reinterpret_cast<float*>(ring + L::ll_offset);
 
   const int n_groups = (C + G - 1) / G;
-  const int tile = blockIdx.x / n_groups;
-  const int grp = blockIdx.x % n_groups;
-  const int m0 = tile * kBM;
+  const int n_items = ((N + kBM - 1) / kBM) * n_groups;
   const int CK = C * K;
   // stages per D step: X_hi with every W piece, then (off the grid) X_lo
   // with W_0
@@ -334,127 +452,192 @@ glm_forward_kernel(const __grid_constant__ CUtensorMap tm_x,    // X_hi (N, D)
   const int n_iter = ((D + kBK - 1) / kBK) * per_step;
   auto n_prod = [&](int it) { return it % per_step == 0 ? R::NB : 1; };
 
-  init_barriers<R>(full, empty);
+  if (threadIdx.x == 0) {
+    init_ring_barriers<R>(full, empty);
+    mbar_init(smem_u32(zfull), kConsumerThreads);   // every MMA thread wrote its Z
+    mbar_init(smem_u32(zempty), kEpiThreads);       // every epilogue thread is done with it
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(smem_u32(&yfull[b]), 32);           // the loader warp
+      mbar_init(smem_u32(&yempty[b]), kEpiThreads);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-  if (threadIdx.x >= kConsumerThreads) {
-    if (threadIdx.x == kConsumerThreads) {
-      produce<R>(ring, full, empty, n_iter, [&](int it, uint32_t stage, uint32_t bar) {
-        const int kd = (it / per_step) * kBK;
-        const int n = n_prod(it);
-        mbar_expect_tx(bar, R::a_bytes + n * R::b_bytes);
-        tma_load_2d(stage, n == R::NB ? &tm_x : &tm_xlo, bar, kd, m0);
-        for (int j = 0; j < n; ++j)
-          tma_load_3d(stage + R::a_bytes + j * R::b_bytes, &tm_w, bar, kd, grp * BN, j);
-      });
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);   // warp-uniform
+  if (role == 3) {
+    setmaxnreg_dec<kProducerRegs>();
+    const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+    if (warp == 0 && lane == 0) {
+      // ---- producer
+      uint32_t g = 0;
+      for (int item = blockIdx.x; item < n_items; item += gridDim.x, g += n_iter) {
+        const int m0 = (item / n_groups) * kBM;
+        const int grp = item % n_groups;
+        produce<R>(ring, full, empty, g, n_iter, [&](int it, uint32_t stage, uint32_t bar) {
+          const int kd = (it / per_step) * kBK;
+          const int n = n_prod(it);
+          mbar_expect_tx(bar, R::a_bytes + n * R::b_bytes);
+          tma_load_2d(stage, n == R::NB ? &tm_x : &tm_xlo, bar, kd, m0);
+          for (int j = 0; j < n; ++j)
+            tma_load_3d(stage + R::a_bytes + j * R::b_bytes, &tm_w, bar, kd, grp * BN, j);
+        });
+      }
+    } else if (warp == 1) {
+      // ---- labels (transposed, zero past the last row) and bias, an item
+      // ahead of the epilogue
+      uint32_t j = 0;
+      for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++j) {
+        const int b = j & 1;
+        const int m0 = (item / n_groups) * kBM;
+        const int grp = item % n_groups;
+        mbar_wait(smem_u32(&yempty[b]), ((j >> 1) & 1) ^ 1);
+        const int rows_k = min(kBM, N - m0) * K;
+        const float* y = Y + static_cast<size_t>(m0) * K;
+        float* yb = ys + b * L::ys_floats;
+#pragma unroll 8
+        for (int i = lane; i < kBM * K; i += 32) yb[(i % K) * kBM + i / K] = i < rows_k ? y[i] : 0.f;
+        for (int i = lane; i < BN; i += 32)
+          bs[b * BN + i] = grp * BN + i < CK ? b2[grp * BN + i] : 0.f;
+        mbar_arrive(smem_u32(&yfull[b]));
+      }
     }
     return;
   }
 
-  // the epilogue's labels and bias, loaded while the first stages land
-  const int t = threadIdx.x;
-  {
-    const int rows_k = min(kBM, N - m0) * K;
-    const float* y = Y + static_cast<size_t>(m0) * K;
-    for (int i = t; i < kBM * K; i += kConsumerThreads) ys[i] = i < rows_k ? y[i] : 0.f;
-    if (t < BN) bs[t] = grp * BN + t < CK ? b2[grp * BN + t] : 0.f;
-  }
-
-  float acc[BN / 2];
-  consume<R, VALUE>(ring, full, empty, n_iter, n_prod, acc);
-  consumer_sync();   // both warpgroups are done with the ring: it now holds Z
-
-  float* zs = reinterpret_cast<float*>(ring);
+  if (role < 2) {
+    // ---- MMA: each item's logits into registers, then Z part by part; a
+    // second part waits in `hold` until halfway through the next main loop
+    setmaxnreg_inc<kMmaRegs>();
+    constexpr int NQ = BN / 8 / ZP;   // 8-column groups of a Z part
+    float hold[ZP == 2 ? 4 * NQ : 1];
+    uint32_t g = 0, w = 0;
+    for (int item = blockIdx.x; item < n_items; item += gridDim.x, g += n_iter) {
+      const bool pending = item != static_cast<int>(blockIdx.x);
+      float acc[BN / 2];
+      consume<R, VALUE>(ring, full, empty, g, n_iter, n_prod, acc, [&](int it) {
+        if constexpr (ZP == 2)
+          if (pending && it == n_iter / 2) hand_over_z<NQ, L::zpitch>(zs, zfull, zempty, w++, hold);
+      });
+      hand_over_z<NQ, L::zpitch>(zs, zfull, zempty, w++, acc);
+      if constexpr (ZP == 2) {
 #pragma unroll
-  for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) zs[acc_row(t, e) * R::zpitch + acc_col(t, j, e)] = acc[4 * j + e];
-  consumer_sync();
-
-  // per-(row, chain) stable softmax: thread t owns chain t % G of rows
-  // t / G + (256 / G) i; R replaces Z in place
-  constexpr int kRowStride = kConsumerThreads / G;
-  const int c = t % G;
-  const int chain = grp * G + c;
-  float ll = 0.f;
-  if (chain < C) {
-    float bias[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k) bias[k] = bs[c * K + k];
-#pragma unroll 2
-    for (int i = 0; i < kBM / kRowStride; ++i) {
-      const int r = t / G + kRowStride * i;
-      float* z = zs + r * R::zpitch + c * K;
-      const float* y = ys + r * K;   // zero past the last row
-      float e[K];
-      float m = -INFINITY;
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        e[k] = z[k] + bias[k];
-        m = fmaxf(m, e[k]);
+        for (int i = 0; i < 4 * NQ; ++i) hold[i] = acc[4 * NQ + i];
       }
-      float s = 0.f;
-      if constexpr (VALUE) {
-        // ll_row = sum_k y_k (z_k - m) - (sum_k y_k) log sum_k exp(z_k - m)
-        float yz = 0.f, ysum = 0.f;
-#pragma unroll
-        for (int k = 0; k < K; ++k) {
-          const float zm = e[k] - m;
-          yz = fmaf(y[k], zm, yz);
-          ysum += y[k];
-          e[k] = expf(zm);
-          s += e[k];
-        }
-        ll += yz - ysum * logf(s);
-      } else {
-        // no value: the fast exp (relative error ~2^-21) is far inside the
-        // 2^-17 of R's bf16 pieces
-#pragma unroll
-        for (int k = 0; k < K; ++k) {
-          e[k] = __expf(e[k] - m);
-          s += e[k];
-        }
-      }
-      const float inv = m0 + r < N ? 1.f / s : 0.f;   // a padded row has no residual
-#pragma unroll
-      for (int k = 0; k < K; ++k) z[k] = y[k] - e[k] * inv;
     }
-  }
-  red[t] = ll;
-  consumer_sync();
-  if (ll_part != nullptr && t < G && grp * G + t < C) {
-    float s = 0.f;
-    for (int q = 0; q < kRowStride; ++q) s += red[q * G + t];
-    ll_part[static_cast<size_t>(tile) * C + grp * G + t] = s;
+    if constexpr (ZP == 2) hand_over_z<NQ, L::zpitch>(zs, zfull, zempty, w++, hold);
+    return;
   }
 
-  // R^T pieces: warp w writes columns w, w + 8, ...; lane l rows 2l, 2l + 1
-  // (+64), as bf16 pairs, hi = bf16(R) and lo = bf16(R - hi)
+  // ---- epilogue.  A Z part holds GP chains x 128 rows; warp w takes the
+  // (chain, 64-row half) units w, w + 4, ..., lane l rows 2l and 2l + 1 of
+  // the half: their stable softmax, then R = Y - softmax straight from the
+  // registers into R^T as bf16 pairs, hi = bf16(R) and lo = bf16(R - hi)
+  setmaxnreg_dec<kEpiRegs>();
+  constexpr int GP = G / ZP;
+  const int u = threadIdx.x - kConsumerThreads;
+  const int warp = u / 32, lane = u % 32;
   __nv_bfloat16* rt_lo = rt + static_cast<size_t>(CK) * ldr;
-  const int warp = t / 32, lane = t % 32;
-  for (int j = warp; j < BN; j += kConsumerThreads / 32) {
-    const int col = grp * BN + j;
-    if (col >= CK) break;
+  uint32_t w = 0, j = 0;
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++j) {
+    const int tile = item / n_groups;
+    const int grp = item % n_groups;
+    const int m0 = tile * kBM;
+    const int b = j & 1;
+    const float* yb = ys + b * L::ys_floats;
+    const float* bb = bs + b * BN;
+    mbar_wait(smem_u32(&yfull[b]), (j >> 1) & 1);
+    for (int p = 0; p < ZP; ++p, ++w) {
+      mbar_wait(smem_u32(zfull), w & 1);
+#pragma unroll 1
+      for (int n = warp; n < 2 * GP; n += kEpiThreads / 32) {
+        const int cl = n / 2;
+        const int c = p * GP + cl;
+        const int r0 = 64 * (n % 2) + 2 * lane;
+        if (grp * G + c >= C) continue;
+        float e[2][K], yv[2][K];
 #pragma unroll
-    for (int e = 0; e < kBM / 64; ++e) {
-      const int r = 2 * lane + 64 * e;
-      const int gr = m0 + r;
-      if (gr < N) {   // gr + 1 < ldr: ldr is N rounded up to a multiple of 8
-        const float v0 = zs[r * R::zpitch + j];
-        const float v1 = zs[(r + 1) * R::zpitch + j];
-        const __nv_bfloat162 hi = __floats2bfloat162_rn(v0, v1);
-        const float2 hf = __bfloat1622float2(hi);
-        const __nv_bfloat162 lo = __floats2bfloat162_rn(v0 - hf.x, v1 - hf.y);
-        const size_t off = static_cast<size_t>(col) * ldr + gr;
-        *reinterpret_cast<__nv_bfloat162*>(rt + off) = hi;
-        *reinterpret_cast<__nv_bfloat162*>(rt_lo + off) = lo;
+        for (int k = 0; k < K; ++k) {
+          const float2 z = *reinterpret_cast<const float2*>(zs + (cl * K + k) * L::zpitch + r0);
+          const float2 y = *reinterpret_cast<const float2*>(yb + k * kBM + r0);
+          const float bias = bb[c * K + k];
+          e[0][k] = z.x + bias;
+          e[1][k] = z.y + bias;
+          yv[0][k] = y.x;
+          yv[1][k] = y.y;
+        }
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+          float m = -INFINITY;
+#pragma unroll
+          for (int k = 0; k < K; ++k) m = fmaxf(m, e[a][k]);
+          float s = 0.f;
+          if constexpr (VALUE) {
+            // ll_row = sum_k y_k (z_k - m) - (sum_k y_k) log sum_k exp(z_k - m)
+            float yz = 0.f, ysum = 0.f;
+#pragma unroll
+            for (int k = 0; k < K; ++k) {
+              const float zm = e[a][k] - m;
+              yz = fmaf(yv[a][k], zm, yz);
+              ysum += yv[a][k];
+              e[a][k] = expf(zm);
+              s += e[a][k];
+            }
+            llrow[c * kBM + r0 + a] = fmaf(-ysum, logf(s), yz);
+          } else {
+            // no value: the fast exp (relative error ~2^-21) is far inside
+            // the 2^-17 of R's bf16 pieces
+#pragma unroll
+            for (int k = 0; k < K; ++k) {
+              e[a][k] = __expf(e[a][k] - m);
+              s += e[a][k];
+            }
+          }
+          const float inv = m0 + r0 + a < N ? 1.f / s : 0.f;   // a padded row has no residual
+          // R = y - e inv with one rounding: written as FMAs, since the
+          // compiler contracts a product and a difference only where both
+          // land in one basic block, and the division's slow path splits them
+#pragma unroll
+          for (int k = 0; k < K; ++k) e[a][k] = fmaf(-e[a][k], inv, yv[a][k]);
+        }
+        const int gr = m0 + r0;
+        if (gr < N) {   // gr + 1 < ldr: ldr is N rounded up to a multiple of 8
+#pragma unroll
+          for (int k = 0; k < K; ++k) {
+            const __nv_bfloat162 hi = __floats2bfloat162_rn(e[0][k], e[1][k]);
+            const float2 hf = __bfloat1622float2(hi);
+            const __nv_bfloat162 lo = __floats2bfloat162_rn(e[0][k] - hf.x, e[1][k] - hf.y);
+            const size_t off = static_cast<size_t>(grp * BN + c * K + k) * ldr + gr;
+            *reinterpret_cast<__nv_bfloat162*>(rt + off) = hi;
+            *reinterpret_cast<__nv_bfloat162*>(rt_lo + off) = lo;
+          }
+        }
       }
+      mbar_arrive(smem_u32(zempty));   // this thread is done with Z
     }
+    if constexpr (VALUE) {
+      // ll_part of chain u: the rows' terms summed in the order of a
+      // 256-thread epilogue in which thread q G + u sums rows q + (256 / G) i
+      // over i, and the chains' partials over q
+      constexpr int kRowStride = kConsumerThreads / G;
+      epilogue_sync();   // every row's term is written
+      if (u < G && grp * G + u < C) {
+        float s = 0.f;
+        for (int q = 0; q < kRowStride; ++q) {
+          float sq = 0.f;
+#pragma unroll
+          for (int i = 0; i < kBM / kRowStride; ++i) sq += llrow[u * kBM + q + kRowStride * i];
+          s += sq;
+        }
+        ll_part[static_cast<size_t>(tile) * C + grp * G + u] = s;
+      }
+      epilogue_sync();   // and read
+    }
+    mbar_arrive(smem_u32(&yempty[b]));   // this thread is done with the labels and bias
   }
 }
 
 // ---- 2. backward GEMM: gW_aug = X_aug^T R, one N slice per block ----------
-using BwdRing = Ring<kBwdBN, 2>;   // the R pieces
-
 __global__ void __launch_bounds__(kThreads, 1)
 glm_backward_kernel(const __grid_constant__ CUtensorMap tm_xt,    // X_hi^T (D+1, N)
                     const __grid_constant__ CUtensorMap tm_xtlo,  // X_lo^T (D+1, N), or tm_xt
@@ -481,11 +664,15 @@ glm_backward_kernel(const __grid_constant__ CUtensorMap tm_xt,    // X_hi^T (D+1
   const int n_iter = k1 > k0 ? (k1 - k0) * per_step : 0;
   auto n_prod = [&](int it) { return it % per_step == 0 ? R::NB : 1; };
 
-  init_barriers<R>(full, empty);
+  if (threadIdx.x == 0) {
+    init_ring_barriers<R>(full, empty);
+    fence_barrier_init();
+  }
+  __syncthreads();
 
   if (threadIdx.x >= kConsumerThreads) {
     if (threadIdx.x == kConsumerThreads) {
-      produce<R>(ring, full, empty, n_iter, [&](int it, uint32_t stage, uint32_t bar) {
+      produce<R>(ring, full, empty, 0, n_iter, [&](int it, uint32_t stage, uint32_t bar) {
         const int kn = (k0 + it / per_step) * kBK;
         const int n = n_prod(it);
         mbar_expect_tx(bar, R::a_bytes + n * R::b_bytes);
@@ -498,7 +685,7 @@ glm_backward_kernel(const __grid_constant__ CUtensorMap tm_xt,    // X_hi^T (D+1
   }
 
   float acc[BN / 2];
-  consume<R, false>(ring, full, empty, n_iter, n_prod, acc);
+  consume<R, false>(ring, full, empty, 0, n_iter, n_prod, acc, [](int) {});
 
   const int t = threadIdx.x;
   float* out = part + static_cast<size_t>(slice) * Daug * CK;
@@ -580,27 +767,45 @@ int make_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dim
   return res == CUDA_SUCCESS ? 0 : kErrTensorMap;
 }
 
+// Calls f(std::integral_constant<int, K>(), std::bool_constant<value>()):
+// the forward variant of K classes; kErrClasses for K outside [2, 16].
+template <int KK = 2, class F>
+int with_variant(int K, bool value, F f) {
+  if constexpr (KK > 16) {
+    return kErrClasses;
+  } else {
+    if (K != KK) return with_variant<KK + 1>(K, value, f);
+    return value ? f(std::integral_constant<int, KK>(), std::true_type())
+                 : f(std::integral_constant<int, KK>(), std::false_type());
+  }
+}
+
+template <int K, bool VALUE>
+cudaError_t allow_forward_smem() {
+  return cudaFuncSetAttribute(glm_forward_kernel<K, VALUE>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              FwdLayoutOf<K, VALUE>::smem_bytes);
+}
+
 // The W map's boxes are one chain group wide, so it is made here.
 template <int K, bool VALUE>
 int launch_forward(const CUtensorMap& mx, const CUtensorMap& mxlo, const void* w, int ldx,
                    int n_w, const float* Y, const float* b2, __nv_bfloat16* rt, float* ll_part,
-                   int N, int D, int C, int ldr, int has_xlo, cudaStream_t stream) {
+                   int N, int D, int C, int ldr, int has_xlo, int grid, cudaStream_t stream) {
   constexpr int G = chain_group<K, VALUE>();
-  using R = Ring<G * K, VALUE ? 3 : 2>;
-  if (n_w != R::NB) return cudaErrorInvalidValue;
+  using L = FwdLayoutOf<K, VALUE>;
+  const int n_items = ((N + kBM - 1) / kBM) * ((C + G - 1) / G);
+  if (n_w != L::R::NB || grid < 1 || grid > n_items) return cudaErrorInvalidValue;
   CUtensorMap mw;
   const cuuint64_t CK = static_cast<cuuint64_t>(C) * K;
   const cuuint64_t wdims[3] = {static_cast<cuuint64_t>(D), CK, static_cast<cuuint64_t>(n_w)};
   const cuuint64_t wstrides[2] = {static_cast<cuuint64_t>(ldx) * 2, CK * ldx * 2};
   const int merr = make_map(&mw, w, 3, wdims, wstrides, G * K);
   if (merr != 0) return merr;
-  auto kernel = glm_forward_kernel<K, VALUE>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, R::smem_bytes);
+  const cudaError_t err = allow_forward_smem<K, VALUE>();
   if (err != cudaSuccess) return err;
-  const int grid = ((N + kBM - 1) / kBM) * ((C + G - 1) / G);
-  kernel<<<grid, kThreads, R::smem_bytes, stream>>>(mx, mxlo, mw, Y, b2, rt, ll_part, N, D, C,
-                                                     ldr, has_xlo);
+  glm_forward_kernel<K, VALUE><<<grid, kFwdThreads, L::smem_bytes, stream>>>(
+      mx, mxlo, mw, Y, b2, rt, ll_part, N, D, C, ldr, has_xlo);
   return cudaGetLastError();
 }
 
@@ -617,13 +822,43 @@ const char* dhmc_cuda_error_string(int err) {
   }
 }
 
+// Chains of a forward work item for K classes, of the value variant (value
+// not 0) or grad-only; 0 for K outside [2, 16].
+int dhmc_glm_forward_group(int K, int value) {
+  const int g = with_variant(K, value != 0, [](auto k, auto v) {
+    return chain_group<decltype(k)::value, decltype(v)::value>();
+  });
+  return g > 0 ? g : 0;
+}
+
+// Forward blocks that run at once on the device, the most the persistent
+// grid takes: the SMs times the blocks per SM.  0 on error.
+int dhmc_glm_forward_slots(int K, int value, int device) {
+  int sms = 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess) return 0;
+  if (cudaSetDevice(device) != cudaSuccess) return 0;
+  const int per_sm = with_variant(K, value != 0, [](auto k, auto v) {
+    constexpr int KK = decltype(k)::value;
+    constexpr bool V = decltype(v)::value;
+    int n = 0;
+    if (allow_forward_smem<KK, V>() != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, glm_forward_kernel<KK, V>, kFwdThreads,
+                                                      FwdLayoutOf<KK, V>::smem_bytes) !=
+            cudaSuccess)
+      return 0;
+    return n;
+  });
+  return per_sm > 0 ? sms * per_sm : 0;
+}
+
 // Stage 1.  x, xlo (N rows, leading dimension ldx; xlo may be null), w
 // (n_w, C*K, ldx) bf16; Y (N, K), b2 (C*K) f32; writes rt (2, C*K, ldr) bf16.
 // The value variant (ll_part not null, n_w = 3) also writes ll_part
-// (ceil(N/128), C).  Returns a cudaError_t, or one of the negative codes above.
+// (ceil(N/128), C).  grid: persistent blocks, 1 to the work items (row tiles
+// x chain groups).  Returns a cudaError_t, or one of the negative codes above.
 int dhmc_glm_forward(const void* x, const void* xlo, int ldx, const void* w, int n_w,
                      const float* Y, const float* b2, void* rt, int ldr, float* ll_part, int N,
-                     int D, int K, int C, int device, void* stream_ptr) {
+                     int D, int K, int C, int grid, int device, void* stream_ptr) {
   cudaError_t cerr = cudaSetDevice(device);
   if (cerr != cudaSuccess) return cerr;
   if (K < 2 || K > 16) return kErrClasses;
@@ -634,23 +869,11 @@ int dhmc_glm_forward(const void* x, const void* xlo, int ldx, const void* w, int
   if (err == 0 && xlo != nullptr) err = make_map(&mxlo, xlo, 2, xdims, xstrides, kBM);
   if (err != 0) return err;
   const int has_xlo = xlo != nullptr;
-  cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
-  __nv_bfloat16* r = static_cast<__nv_bfloat16*>(rt);
-#define DHMC_FORWARD_CASE(KK)                                                                \
-  case KK:                                                                                   \
-    return ll_part != nullptr                                                                \
-               ? launch_forward<KK, true>(mx, has_xlo ? mxlo : mx, w, ldx, n_w, Y, b2, r,    \
-                                          ll_part, N, D, C, ldr, has_xlo, stream)            \
-               : launch_forward<KK, false>(mx, has_xlo ? mxlo : mx, w, ldx, n_w, Y, b2, r,   \
-                                           ll_part, N, D, C, ldr, has_xlo, stream);
-  switch (K) {
-    DHMC_FORWARD_CASE(2) DHMC_FORWARD_CASE(3) DHMC_FORWARD_CASE(4) DHMC_FORWARD_CASE(5)
-    DHMC_FORWARD_CASE(6) DHMC_FORWARD_CASE(7) DHMC_FORWARD_CASE(8) DHMC_FORWARD_CASE(9)
-    DHMC_FORWARD_CASE(10) DHMC_FORWARD_CASE(11) DHMC_FORWARD_CASE(12) DHMC_FORWARD_CASE(13)
-    DHMC_FORWARD_CASE(14) DHMC_FORWARD_CASE(15) DHMC_FORWARD_CASE(16)
-  }
-#undef DHMC_FORWARD_CASE
-  return kErrClasses;
+  return with_variant(K, ll_part != nullptr, [&](auto k, auto v) {
+    return launch_forward<decltype(k)::value, decltype(v)::value>(
+        mx, has_xlo ? mxlo : mx, w, ldx, n_w, Y, b2, static_cast<__nv_bfloat16*>(rt), ll_part,
+        N, D, C, ldr, has_xlo, grid, reinterpret_cast<cudaStream_t>(stream_ptr));
+  });
 }
 
 // Stage 2.  xt, xtlo (D+1 rows, leading dimension ldr; xtlo may be null),
@@ -669,16 +892,15 @@ int dhmc_glm_backward(const void* xt, const void* xtlo, const void* rt, int ldr,
   const cuuint64_t rdims[3] = {static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(CK), 2};
   if (err == 0) err = make_map(&mrt, rt, 3, rdims, strides, kBwdBN);
   if (err != 0) return err;
-  using R = BwdRing;
   cerr = cudaFuncSetAttribute(glm_backward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              R::smem_bytes);
+                              kBwdSmemBytes);
   if (cerr != cudaSuccess) return cerr;
   const int n_ctiles = (CK + kBwdBN - 1) / kBwdBN;
   const int n_dtiles = (Daug + kBM - 1) / kBM;
   const int nk = (N + kBK - 1) / kBK;
   const int k_per_slice = (nk + n_slices - 1) / n_slices;
   const int has_xlo = xtlo != nullptr;
-  glm_backward_kernel<<<n_ctiles * n_dtiles * n_slices, kThreads, R::smem_bytes,
+  glm_backward_kernel<<<n_ctiles * n_dtiles * n_slices, kThreads, kBwdSmemBytes,
                         reinterpret_cast<cudaStream_t>(stream_ptr)>>>(
       mxt, has_xlo ? mxtlo : mxt, mrt, part, N, Daug, CK, has_xlo, n_ctiles, n_dtiles,
       k_per_slice);
@@ -692,10 +914,10 @@ int dhmc_glm_backward_slots(int device) {
   if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess) return 0;
   if (cudaSetDevice(device) != cudaSuccess) return 0;
   if (cudaFuncSetAttribute(glm_backward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           BwdRing::smem_bytes) != cudaSuccess)
+                           kBwdSmemBytes) != cudaSuccess)
     return 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, glm_backward_kernel, kThreads,
-                                                    BwdRing::smem_bytes) != cudaSuccess)
+                                                    kBwdSmemBytes) != cudaSuccess)
     return 0;
   return sms * per_sm;
 }

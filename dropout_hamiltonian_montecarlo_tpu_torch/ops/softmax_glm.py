@@ -37,22 +37,27 @@ import torch
 
 from .cuda_build import load_library
 
-# Class counts the compiled kernel takes (a forward block holds 16 chains x K
-# classes of logits: a wgmma width of at most 256).
+# Class counts the compiled kernel takes (a forward work item holds 8 or 16
+# chains x K classes of logits: a wgmma width of at most 256).
 KERNEL_MIN_CLASSES, KERNEL_MAX_CLASSES = 2, 16
-TILE_ROWS = 128        # rows of X per forward block
+TILE_ROWS = 128        # rows of X per forward work item
 BACKWARD_COLS = 160    # columns of gW per backward block
 STEP = 64              # reduction step of both GEMMs
 MAX_SLICE_STEPS = 160  # reduction steps in one slice of the gradient GEMM (10240 rows)
 
-# Launches of the CUDA kernel, per variant.  Raised only where the kernel is
+# Launches of the CUDA kernel, per variant, and the forward work items whose
+# epilogue could run under another item's main loop (work items minus
+# persistent blocks, summed over launches).  Raised only where the kernel is
 # launched; the CPU route leaves them alone.
 launch_counts: Dict[str, int] = {"value_and_grad": 0, "grad": 0}
+forward_items_overlapped = 0
 
 
 def reset_launch_counts() -> None:
+    global forward_items_overlapped
     for k in launch_counts:
         launch_counts[k] = 0
+    forward_items_overlapped = 0
 
 
 def _check_inputs(X, Y, W, b, dtypes=(torch.float32,)) -> Tuple[int, int, int, int]:
@@ -189,6 +194,29 @@ def backward_slices(N: int, D: int, CK: int, slots: int) -> int:
     return best
 
 
+def forward_schedule(N: int, C: int, group: int, slots: int) -> Tuple[int, int]:
+    """(work items, persistent blocks) of the forward stage.
+
+    A work item is one (128-row tile, chain group of ``group`` chains); the
+    grid is as many blocks as the device runs at once (``slots``), or fewer
+    where there are fewer items.  Each block walks its items as
+    ``forward_walk`` lists them; items - blocks epilogues can run under
+    another item's main loop."""
+    if slots < 1 or group < 1:
+        raise ValueError(f"need slots >= 1 and group >= 1, got {slots}, {group}")
+    n_items = -(-N // TILE_ROWS) * -(-C // group)
+    return n_items, min(n_items, slots)
+
+
+def forward_walk(n_items: int, grid: int, n_groups: int):
+    """The forward kernel's order of work: block b takes items b, b + grid,
+    ...; item i is (row tile i // n_groups, chain group i % n_groups), so the
+    groups of a row tile run at once on neighbouring blocks.  Returns, per
+    block, its (tile, group) pairs in the order it runs them."""
+    return [[(i // n_groups, i % n_groups) for i in range(b, n_items, grid)]
+            for b in range(grid)]
+
+
 # ---- the CUDA kernel -------------------------------------------------------------
 
 def _ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
@@ -231,6 +259,9 @@ class KernelCall:
             self.ldr = hi.xt.shape[1]
             self.rt = torch.empty((2, CK, self.ldr), dtype=torch.bfloat16, device=self.dev)
             self.n_tiles = -(-N // TILE_ROWS)
+            self.n_items, self.grid = forward_schedule(
+                N, C, _forward_group(K, with_value),
+                _forward_slots(self.device_index, K, with_value))
             self.ll_part = torch.empty((self.n_tiles, C), **f32) if with_value else None
             self.slices = backward_slices(N, D, CK, _backward_slots(self.device_index))
             self.part = torch.empty((self.slices, D + 1, CK), **f32)
@@ -251,7 +282,8 @@ class KernelCall:
         self._check(self.lib.dhmc_glm_forward(
             _ptr(self.hi.x), _ptr(lo), self.hi.x.shape[1], _ptr(self.w), self.w.shape[0],
             _ptr(self.Y), _ptr(self.b2), _ptr(self.rt), self.ldr, _ptr(self.ll_part),
-            self.N, self.D, self.K, self.C, self.device_index, self._stream()), "forward")
+            self.N, self.D, self.K, self.C, self.grid, self.device_index, self._stream()),
+            "forward")
 
     def backward(self) -> None:
         lo = self.lo.xt if self.lo is not None else None
@@ -274,6 +306,23 @@ class KernelCall:
 
 
 @functools.lru_cache(maxsize=None)
+def _forward_group(K: int, with_value: bool) -> int:
+    group = _kernel_lib().dhmc_glm_forward_group(K, int(with_value))
+    if group <= 0:
+        raise RuntimeError(f"softmax_glm: no forward chain group for K={K}")
+    return group
+
+
+@functools.lru_cache(maxsize=None)
+def _forward_slots(device_index: int, K: int, with_value: bool) -> int:
+    slots = _kernel_lib().dhmc_glm_forward_slots(K, int(with_value), device_index)
+    if slots <= 0:
+        raise RuntimeError("softmax_glm: could not size the forward grid on "
+                           f"cuda:{device_index}")
+    return slots
+
+
+@functools.lru_cache(maxsize=None)
 def _backward_slots(device_index: int) -> int:
     slots = _kernel_lib().dhmc_glm_backward_slots(device_index)
     if slots <= 0:
@@ -287,11 +336,14 @@ def _kernel_lib() -> ctypes.CDLL:
     if not getattr(lib, "_dhmc_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.dhmc_glm_forward.argtypes = [vp, vp, ci, vp, ci, vp, vp, vp, ci, vp,
-                                         ci, ci, ci, ci, ci, vp]
+                                         ci, ci, ci, ci, ci, ci, vp]
+        lib.dhmc_glm_forward_group.argtypes = [ci, ci]
+        lib.dhmc_glm_forward_slots.argtypes = [ci, ci, ci]
         lib.dhmc_glm_backward.argtypes = [vp, vp, vp, ci, vp, ci, ci, ci, ci, ci, vp]
         lib.dhmc_glm_finish.argtypes = [vp, ci, ci, ci, ci, vp, ci, vp, vp, vp, ci, vp]
         lib.dhmc_glm_backward_slots.argtypes = [ci]
         for fn in (lib.dhmc_glm_forward, lib.dhmc_glm_backward, lib.dhmc_glm_finish,
+                   lib.dhmc_glm_forward_group, lib.dhmc_glm_forward_slots,
                    lib.dhmc_glm_backward_slots):
             fn.restype = ci
         lib.dhmc_cuda_error_string.argtypes = [ci]
@@ -326,6 +378,7 @@ def softmax_value_and_grad(X, Y, W, b, alpha: float, *, fwd_full: bool = True,
     the A/B switch of the bench (``BENCH_KERNEL=0``).  Nothing selects it
     silently: with the default, a CUDA tensor launches the kernel or raises.
     """
+    global forward_items_overlapped
     _check_inputs(X, Y, W, b)
     if not use_kernel:
         value, gw, gb = softmax_value_and_grad_plain(X, Y, W, b)
@@ -336,6 +389,7 @@ def softmax_value_and_grad(X, Y, W, b, alpha: float, *, fwd_full: bool = True,
                           Y, W, b, with_value=fwd_full)
         value, gw, gb = call.run()
         launch_counts["value_and_grad" if fwd_full else "grad"] += 1
+        forward_items_overlapped += call.n_items - call.grid
     elif X.device.type == "cpu":
         value, gw, gb = softmax_value_and_grad_plain(X, Y, W, b)
         if not fwd_full:

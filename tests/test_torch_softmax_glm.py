@@ -259,6 +259,51 @@ def test_backward_slices_bound_the_chain_and_fill_the_device():
         assert all(waves(s) <= waves(q) for q in range(least, max(least, min(steps, 32)) + 1))
 
 
+# (N, C, chains per work item, device slots) -> (work items, persistent
+# blocks): the bench shape's grad-only (16-chain items) and value (8-chain)
+# calls on 132 SMs, the data-parallel shard's 30,000 rows, the ragged GPU
+# test shape, and small shapes with fewer items than slots
+SCHEDULES = [((60000, 128, 16, 132), (3752, 132)), ((60000, 128, 8, 132), (7504, 132)),
+             ((30000, 128, 16, 132), (1880, 132)), ((20000, 40, 16, 132), (471, 132)),
+             ((257, 17, 16, 132), (6, 6)), ((1000, 3, 16, 132), (8, 8)),
+             ((128 * 132, 16, 16, 132), (132, 132))]
+
+
+@pytest.mark.parametrize("shape,want", SCHEDULES)
+def test_forward_schedule_sizes_the_persistent_grid(shape, want):
+    n_items, grid = sg.forward_schedule(*shape)
+    assert (n_items, grid) == want
+    overlapped = n_items - grid
+    assert overlapped >= 0
+    if n_items <= shape[3]:
+        assert overlapped == 0
+    if shape == (60000, 128, 16, 132):   # ~96.5% of the epilogues can hide
+        assert overlapped == 3620 and abs(overlapped / n_items - 0.965) < 1e-3
+
+
+@pytest.mark.parametrize("n_tiles,n_groups,grid", [(469, 8, 132), (469, 16, 132), (157, 3, 132),
+                                                   (3, 2, 6), (5, 3, 4), (1, 1, 1)])
+def test_forward_walk_covers_every_item_once_with_a_tiles_groups_adjacent(n_tiles, n_groups, grid):
+    walk = sg.forward_walk(n_tiles * n_groups, grid, n_groups)
+    assert len(walk) == grid and all(walk)
+    done = [pair for block in walk for pair in block]
+    assert sorted(done) == [(t, g) for t in range(n_tiles) for g in range(n_groups)]
+    # the order the blocks run them in: round by round, block by block
+    order = [walk[b][r] for r in range(max(map(len, walk))) for b in range(grid) if r < len(walk[b])]
+    assert order == [(i // n_groups, i % n_groups) for i in range(n_tiles * n_groups)]
+    for t in range(n_tiles):
+        at = [k for k, (tile, _) in enumerate(order) if tile == t]
+        assert at == list(range(at[0], at[0] + n_groups))
+    # a block's load differs from another's by at most one item
+    assert max(map(len, walk)) - min(map(len, walk)) <= 1
+
+
+@pytest.mark.parametrize("slots,group", [(0, 16), (132, 0)])
+def test_forward_schedule_rejects_an_empty_grid(slots, group):
+    with pytest.raises(ValueError):
+        sg.forward_schedule(60000, 128, group, slots)
+
+
 def test_fused_maker_takes_a_shared_split():
     """make_fused_value_and_grad(x_split=...) gives the same outputs as
     without one; the CPU route ignores the split."""

@@ -131,6 +131,56 @@ def test_kernel_is_deterministic(cuda, fwd_full):
         assert (a is None and b2 is None) or torch.equal(a, b2)
 
 
+# (N, D, K, C, X on the 8-bit grid): more forward work items than the
+# persistent grid's blocks, several times over with a ragged last round
+# (157 row tiles x 3 or 5 chain groups on 132 SMs); the value variant takes
+# 8-chain items at K = 9 and 13, grad-only at 13, and with K odd their Z goes
+# over in one part
+MANY_ITEMS = [(20000, 100, 10, 40, True), (20000, 100, 13, 40, False), (20000, 100, 9, 40, True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fwd_full", [True, False])
+@pytest.mark.parametrize("n,d,k,c,grid", MANY_ITEMS)
+def test_persistent_forward_walks_many_items(cuda, fwd_full, n, d, k, c, grid):
+    """Each persistent block runs several (row tile, chain group) items, the
+    epilogue of one under the next one's main loop: the outputs keep
+    test_kernel_matches_plain's tolerances, two calls are bit-identical, and
+    forward_items_overlapped counts items - blocks a launch."""
+    X, Y, W, b = _inputs(n, d, k, c, cuda, grid=grid)
+    split = sg.split_bf16_input(X)
+    call = sg.KernelCall(split, Y, W, b, with_value=fwd_full)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    group = 8 if k >= (8 if fwd_full else 12) else 16
+    assert call.n_items == -(-n // 128) * -(-c // group)
+    assert call.grid == min(call.n_items, sms) and call.n_items > 3 * call.grid
+    sg.reset_launch_counts()
+    first = sg.softmax_value_and_grad(X, Y, W, b, ALPHA, fwd_full=fwd_full, x_split=split)
+    second = sg.softmax_value_and_grad(X, Y, W, b, ALPHA, fwd_full=fwd_full, x_split=split)
+    torch.cuda.synchronize()
+    assert sg.forward_items_overlapped == 2 * (call.n_items - call.grid)
+    for a, b2 in zip(first, second):
+        assert (a is None and b2 is None) or torch.equal(a, b2)
+    v, gw, gb = first
+    ll, gw_p, gb_p = sg.softmax_value_and_grad_plain(X, Y, W, b)
+    if fwd_full:
+        torch.testing.assert_close(v, ll + sg.log_prior_batched(W, b, ALPHA), rtol=1e-6, atol=1e-3)
+    for got, ref in ((gw, gw_p - ALPHA * W), (gb, gb_p - ALPHA * b)):
+        torch.testing.assert_close(got, ref, rtol=1e-4,
+                                   atol=1e-5 * float(ref.abs().max()))
+
+
+@pytest.mark.gpu
+def test_small_shapes_overlap_no_forward_items(cuda):
+    """Fewer items than blocks: one item a block, nothing to overlap."""
+    X, Y, W, b = _inputs(257, 33, 10, 17, cuda)
+    sg.reset_launch_counts()
+    sg.softmax_value_and_grad(X, Y, W, b, ALPHA)
+    sg.softmax_value_and_grad(X, Y, W, b, ALPHA, fwd_full=False)
+    torch.cuda.synchronize()
+    assert sg.forward_items_overlapped == 0
+
+
 @pytest.mark.gpu
 def test_kernel_raises_on_unsupported_classes(cuda):
     X, Y, W, b = _inputs(100, 8, 17, 2, cuda)
