@@ -17,17 +17,18 @@ U_a, qw, qb), so one setup can be loaded by both packages.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import math
 import os
 import time
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..utils import profiling
-from . import streams
+from . import softmax_glm, streams
 from .metrics import Metric
 from .softmax_glm import split_bf16_input
 from .tree import Params, tree_add, tree_randn_like
@@ -139,7 +140,11 @@ class KronMetric:
         """The transpose of the linear map ``unwhiten``: carries a gradient
         in parameter space to whitened space,
         g_e = unpack((U_g^T pack(g) U_a) / sqrt_d)."""
-        return self.unpack(self.to_eigen(g) / self.sqrt_d)
+        return self.unpack(self.unwhiten_transpose_packed(g))
+
+    def unwhiten_transpose_packed(self, g: Params) -> torch.Tensor:
+        """``unwhiten_transpose`` before the unpack: one (..., D+1, K)."""
+        return self.to_eigen(g) / self.sqrt_d
 
 
 def softmax_gauss_newton_metric(X: torch.Tensor, n_classes: int, alpha: float,
@@ -445,6 +450,99 @@ def make_whitened_gauge_gibbs(metric: KronMetric, aux, qmap: Params):
     return gibbs
 
 
+def graph_key(E: Params) -> Tuple:
+    """What a CUDA graph of the whitened call depends on in its input E: each
+    leaf's name, shape, dtype and device.  A call whose key is the held
+    graph's replays it; a call with any other key captures anew."""
+    return tuple((k, tuple(E[k].shape), E[k].dtype, E[k].device) for k in sorted(E))
+
+
+# Captures of the whitened call's CUDA graphs (``_WhitenedGraph``), one a
+# variant and input key; a replay counts as a kernel launch of its variant in
+# ``softmax_glm.launch_counts`` instead.
+graph_counts = {"captures": 0}
+
+# The whitened call's three stages, each under its span: the map into
+# parameter space, the fused (or plain) call, the map back.
+VAG_SPANS = ("vag.unwhiten", "vag.kernel", "vag.unwhiten_t")
+
+
+def _run_stages(stages, x):
+    for name, stage in zip(VAG_SPANS, stages):
+        with profiling.span(name):
+            x = stage(x)
+    return x
+
+
+class _WhitenedGraph:
+    """One variant of the whitened call, its three stages captured as three
+    CUDA graphs and replayed under their spans (``VAG_SPANS``), so the
+    kernels of each are read as in the eager call.
+
+    ``stages`` map the whitened position E through Q to (value or None, the
+    packed (C, D+1, K) whitened gradient).  A call whose ``graph_key``
+    differs from the held graphs' drops them (one set a variant), runs the
+    stages once on a side stream (the first call also loads the library and
+    sizes the kernel's grids), and captures each.  Every call copies E into
+    the static input, replays the three graphs on the current stream, and
+    returns clones of the outputs: a state or a checkpoint that keeps a
+    gradient must not see the next replay overwrite it.  A capture that
+    fails raises.  Each replay counts as one kernel launch of its variant in
+    ``softmax_glm.launch_counts`` (and its forward items in
+    ``forward_items_overlapped``); the warm-up and the capture count none."""
+
+    def __init__(self, stages, variant: str):
+        self.stages, self.variant = stages, variant
+        self.key = self.graphs = self.inp = self.outs = None
+        self.overlapped = 0
+
+    def _capture(self, E: Params, key: Tuple) -> None:
+        self.key = self.graphs = self.inp = self.outs = None
+        saved = dict(softmax_glm.launch_counts), softmax_glm.forward_items_overlapped
+        try:
+            inp = {k: v.clone(memory_format=torch.contiguous_format) for k, v in E.items()}
+            device = next(iter(inp.values())).device
+            stream = torch.cuda.current_stream(device)
+            side = torch.cuda.Stream(device)
+            side.wait_stream(stream)
+            with torch.cuda.stream(side):
+                x = inp
+                for stage in self.stages:
+                    x = stage(x)
+            stream.wait_stream(side)
+            before = softmax_glm.forward_items_overlapped
+            # each stage's outputs stay held: the next stage's graph reads them
+            graphs, outs = [], [inp]
+            for stage in self.stages:
+                graphs.append(torch.cuda.CUDAGraph())
+                with torch.cuda.graph(graphs[-1]):
+                    outs.append(stage(outs[-1]))
+            overlapped = softmax_glm.forward_items_overlapped - before
+        finally:
+            softmax_glm.launch_counts.update(saved[0])
+            softmax_glm.forward_items_overlapped = saved[1]
+        self.key, self.graphs, self.inp, self.outs = key, graphs, inp, outs
+        self.overlapped = overlapped
+        graph_counts["captures"] += 1
+
+    def __call__(self, E: Params):
+        key = graph_key(E)
+        if key != self.key:
+            self._capture(E, key)
+        with profiling.span("vag.graph"):
+            for k, v in self.inp.items():
+                v.copy_(E[k])
+            for name, graph in zip(VAG_SPANS, self.graphs):
+                with profiling.span(name):
+                    graph.replay()
+            value, ge = self.outs[-1]
+            value = value.clone() if value is not None else None
+            ge = ge.clone()
+        softmax_glm.launch_counts[self.variant] += 1
+        softmax_glm.forward_items_overlapped += self.overlapped
+        return value, ge
+
+
 def make_whitened_fused_vag(model, metric: KronMetric, qmap: Params, batch,
                             use_kernel: bool = True):
     """Chain-batched value+grad of the whitened log posterior
@@ -454,9 +552,17 @@ def make_whitened_fused_vag(model, metric: KronMetric, qmap: Params, batch,
     whitened grads) with the accurate value; ``batched_grad`` is the
     grad-only variant for the inner leapfrog steps (no value).  Both share
     one set of the kernel's bf16 pieces of X, cut here once (CUDA only).
-    ``use_kernel=False`` asks for the plain PyTorch version by name."""
+    ``use_kernel=False`` asks for the plain PyTorch version by name.
+
+    On a CUDA X with the kernel, each variant's three stages (the map into
+    parameter space, the kernel's launches and the prior, the map back) are
+    CUDA graphs, captured at its first call and replayed on every later one
+    (``_WhitenedGraph``), so the host enqueues three replays where it
+    enqueued some thirty launches; the outputs are bit for bit the eager
+    call's.  The CPU route and ``use_kernel=False`` run eagerly."""
     X = batch[0]
-    x_split = split_bf16_input(X) if X.is_cuda and use_kernel else None
+    graphed = X.is_cuda and use_kernel
+    x_split = split_bf16_input(X) if graphed else None
     fused_q = model.make_fused_value_and_grad(batch, x_split=x_split, use_kernel=use_kernel)
     fused_g = model.make_fused_value_and_grad(batch, fwd_full=False, x_split=x_split,
                                               use_kernel=use_kernel)
@@ -465,21 +571,25 @@ def make_whitened_fused_vag(model, metric: KronMetric, qmap: Params, batch,
         dQ = metric.unwhiten(E)
         return {k: qmap[k][None] + dQ[k] for k in qmap}
 
-    # spans: the map into parameter space, the fused call, the map back
+    def back(value_G):
+        value, G = value_G
+        return value, metric.unwhiten_transpose_packed(G)
+
+    # each variant: E -> (value or None, the packed (C, D+1, K) whitened grad)
+    stages_q = (to_params, fused_q, back)
+    stages_g = (to_params, lambda Q: (None, fused_g(Q)), back)
+    if graphed:
+        call_q = _WhitenedGraph(stages_q, "value_and_grad")
+        call_g = _WhitenedGraph(stages_g, "grad")
+    else:
+        call_q = functools.partial(_run_stages, stages_q)
+        call_g = functools.partial(_run_stages, stages_g)
+
     def batched_vag(E: Params):
-        with profiling.span("vag.unwhiten"):
-            Q = to_params(E)
-        with profiling.span("vag.kernel"):
-            value, G = fused_q(Q)
-        with profiling.span("vag.unwhiten_t"):
-            return value, metric.unwhiten_transpose(G)
+        value, ge = call_q(E)
+        return value, KronMetric.unpack(ge)
 
     def batched_grad(E: Params) -> Params:
-        with profiling.span("vag.unwhiten"):
-            Q = to_params(E)
-        with profiling.span("vag.kernel"):
-            G = fused_g(Q)
-        with profiling.span("vag.unwhiten_t"):
-            return metric.unwhiten_transpose(G)
+        return KronMetric.unpack(call_g(E)[1])
 
     return batched_vag, batched_grad

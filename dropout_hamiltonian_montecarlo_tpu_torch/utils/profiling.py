@@ -13,7 +13,12 @@ launched inside it.  The names, each documented where it is opened:
 - ``nuts.begin``, ``nuts.flag_wait``, ``nuts.leaf``, ``nuts.merge``:
   ``inference/nuts_batched.py``;
 - ``vag.unwhiten``, ``vag.kernel``, ``vag.unwhiten_t``:
-  ``ops/kron_metric.py::make_whitened_fused_vag``;
+  ``ops/kron_metric.py::make_whitened_fused_vag``, once a call; on CUDA
+  with the kernel route each opens around its stage's CUDA graph replay
+  (``_WhitenedGraph``);
+- ``vag.graph``: ``ops/kron_metric.py::_WhitenedGraph``, once a replayed
+  call (the copies in, the three replays, the clones out), so its calls are
+  the replays;
 - ``sghmc.batch``, ``sghmc.draw``, ``sghmc.grad``, ``sghmc.update``,
   ``sghmc.value``: ``inference/sgmcmc.py``.
 """

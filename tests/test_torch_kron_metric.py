@@ -175,6 +175,67 @@ def test_whitened_fused_vag_shares_one_split(setup):
             np.testing.assert_array_equal(got[k].numpy(), ref[k].numpy())
 
 
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_whitened_call_captures_nothing_off_cuda(setup, use_kernel):
+    """On the CPU, with the kernel route or with ``use_kernel=False``, the
+    whitened call runs eagerly: no CUDA graph is captured, no kernel launch
+    (and so no replay) is counted, and the outputs are the composition's, bit for
+    bit, in its layout (views of one packed (C, D+1, K) gradient)."""
+    from dropout_hamiltonian_montecarlo_tpu_torch.ops import softmax_glm as sg
+
+    rng = np.random.RandomState(12)
+    E = params_from_jax(_rand_tree(rng, setup["d"], scale=0.5), "cpu")
+    model = Softmax(dim=setup["d"], n_classes=10, alpha=ALPHA)
+    batch = (torch.from_numpy(setup["X"]), torch.from_numpy(setup["Y"]))
+    metric, qmap = setup["tmetric"], setup["tqmap"]
+    sg.reset_launch_counts()
+    captures = tkm.graph_counts["captures"]
+    vag, grad_only = tkm.make_whitened_fused_vag(model, metric, qmap, batch,
+                                                 use_kernel=use_kernel)
+    got = [vag(E), (None, grad_only(E)), vag(E)]
+    assert tkm.graph_counts["captures"] == captures
+    assert sg.launch_counts == {"value_and_grad": 0, "grad": 0}
+    assert sg.forward_items_overlapped == 0
+    dQ = metric.unwhiten(E)
+    Q = {k: qmap[k][None] + dQ[k] for k in qmap}
+    ref_v, ref_G = model.make_fused_value_and_grad(batch, use_kernel=use_kernel)(Q)
+    ref_g = metric.unwhiten_transpose(ref_G)
+    for value, g in got:
+        if value is not None:
+            np.testing.assert_array_equal(value.numpy(), ref_v.numpy())
+        for k in ("weights", "bias"):
+            np.testing.assert_array_equal(g[k].numpy(), ref_g[k].numpy())
+            assert g[k].stride() == ref_g[k].stride()
+
+
+@pytest.mark.parametrize("change, recapture", [
+    ("values", False), ("strides", False), ("chains", True), ("classes", True),
+    ("dtype", True), ("leaves", True)])
+def test_graph_key_decides_replay_or_capture(change, recapture):
+    """``graph_key``: a call whose E has the held graph's leaves, shapes,
+    dtype and device replays it, whatever its values and strides (the copy
+    into the static input takes any layout, as NUTS's unravelled views);
+    another chain count, class count, dtype or leaf set captures anew."""
+    g = torch.Generator().manual_seed(0)
+    E = {"weights": torch.randn((4, 6, 3), generator=g), "bias": torch.randn((4, 3), generator=g)}
+    if change == "values":
+        F = {k: v + 1.0 for k, v in E.items()}
+    elif change == "strides":
+        flat = torch.randn((4, 6 * 3 + 3), generator=g)
+        F = {"weights": flat[:, :18].view(4, 6, 3), "bias": flat[:, 18:]}
+        assert not F["bias"].is_contiguous()
+    elif change == "chains":
+        F = {k: v[:2] for k, v in E.items()}
+    elif change == "classes":
+        F = {k: v[..., :2] for k, v in E.items()}
+    elif change == "dtype":
+        F = {k: v.double() for k, v in E.items()}
+    else:
+        F = {"weights": E["weights"], "b": E["bias"]}
+    assert tkm.graph_key(E) == tkm.graph_key({k: v.clone() for k, v in E.items()})
+    assert (tkm.graph_key(F) != tkm.graph_key(E)) == recapture
+
+
 def test_port_setup_loads_in_jax(setup, tmp_path):
     """The port computes its own setup (Gram eigh, Newton MAP, Fisher), writes
     it, reads it back from the cache, and the JAX package builds the same
